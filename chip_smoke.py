@@ -1,0 +1,482 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's GRNND build and beam search on one NVIDIA card.
+
+    python3 chip_smoke.py          # from the repository root, on a machine with a card
+
+Phases, each printing its own lines with seconds:
+
+  1. device: the card's name and power limit, the torch / CUDA versions, and
+     the kernels built from `src/repro_torch/kernels/csrc` (one nvcc each);
+  2. each of the five hand-written kernels against its plain PyTorch version
+     on the same CUDA inputs, at the shapes the SIFT1M-shaped main path gives
+     it, with kernel / plain / library times and the least time the card
+     could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s);
+  3. build parity at n = 100,000: one build and search through the kernels,
+     one through `ops.backend("ref")`, with the same draws; their recall@10
+     at ef = 64 over 1,000 queries agrees within 0.01;
+  4. the main path at SIFT1M's shape (`sift-like`, n = 1,000,000, d = 128,
+     10,000 queries, the SIFT1M build config): build, brute-force ground
+     truth, hashed-visited search at ef 64 and 128; every kernel must have
+     launched, and recall@10 must clear a floor that catches a broken graph;
+  5. where the time goes: torch.profiler over one propagation round and one
+     search, the search with a larger visited table and with the dense one,
+     and the share of true 10-NN the built pools hold.
+
+Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+Any failure raises and the exit code is non-zero; without a card the script
+exits non-zero before printing a result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs.grnnd_paper import SIFT1M  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    Draws,
+    brute_force_knn,
+    build_graph,
+    init_random,
+    recall_at_k,
+    search,
+    update_round,
+)
+from repro_torch.core.pools import stage_request_matrix  # noqa: E402
+from repro_torch.core.search import _table_insert  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.pairwise_l2 import pairwise_sqdist, rowwise_sqdist  # noqa: E402
+from repro_torch.kernels.rng_round import rng_round  # noqa: E402
+from repro_torch.kernels.search_expand import search_expand  # noqa: E402
+from repro_torch.kernels.topr_merge import topr_merge  # noqa: E402
+
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_FP32_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
+SEED = 0
+N_PARITY, Q_PARITY = 100_000, 1_000
+EF_MAIN = (64, 128)
+# recall@10 floors of the n = 1M main path: they catch a broken graph and
+# rank nothing (PERF.md gives the measured values beside them)
+RECALL_FLOOR = {64: 0.60, 128: 0.75}
+# fp32 tolerances: other summation orders than the plain versions
+RTOL, ATOL = 1e-5, 1e-4
+PAIRWISE_REL = 1e-5  # of |x|^2 + |y|^2 (norm-decomposition cancellation)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call over `reps` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops_fp32: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops_fp32 / PEAK_FP32_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def unique_rows(ids: torch.Tensor) -> int:
+    return int(torch.unique(ids[ids >= 0]).numel())
+
+
+def close(got, want, what: str) -> float:
+    err = (got - want).abs()
+    bad = err > ATOL + RTOL * want.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} values outside rtol {RTOL} atol {ATOL}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+
+def phase_device() -> None:
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        timeout=60,
+        check=True,
+    ).stdout.strip()
+    log(smi.splitlines()[0])
+    log(
+        f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}"
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions stay full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    secs = _build.build_all()
+    for name in _build.SOURCES:
+        regs = [ln.strip() for ln in _build.ptxas_report(name).splitlines() if "registers" in ln]
+        log(f"[build] {name}.cu {secs[name]:.1f}s; ptxas: {' | '.join(regs)}")
+    log(f"[device] done in {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+
+
+def check_rng_round(got, want, dists, si, sj) -> tuple[float, int]:
+    """dij within tolerance; src equal; dst / kill equal except where the hit
+    test's dij sits within the tolerance of its threshold. Returns
+    (max abs dij error, mismatched pairs at near-ties)."""
+    err = close(got[2], want[2], "rng_round dij")
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError("rng_round src differs")
+    thr = torch.maximum(dists.gather(1, si.long()), dists.gather(1, sj.long()))
+    near = (want[2] - thr).abs() <= ATOL + RTOL * thr.abs()
+    dst_bad = got[0] != want[0]
+    if bool((dst_bad & ~near).any()):
+        raise AssertionError("rng_round dst differs away from a near-tie")
+    if bool(((got[3] != want[3]).any(1) & ~near.any(1)).any()):
+        raise AssertionError("rng_round kill differs in a row without a near-tie")
+    return err, int(dst_bad.sum())
+
+
+def phase_kernels(x, queries, draws, cfg) -> list[dict]:
+    t0 = time.perf_counter()
+    n, d = x.shape
+    r, p = cfg.r, cfg.pairs_per_vertex
+    dev = x.device
+    # a pool as the build holds it after one round, and that round's inputs
+    pool = update_round(x, init_random(draws, x, cfg.s, r), draws, cfg, 0, 0)
+    si, sj = (a.to(dev) for a in draws.slot_pairs(0, 1, None, n, r, p))
+    round_out = rng_round(x, pool.ids, pool.dists, si, sj)
+    staged_i, staged_d = stage_request_matrix(*round_out[:3], n, cfg.cap)
+    merge_ids = torch.cat([torch.where(round_out[3], -1, pool.ids), staged_i], 1)
+    merge_d = torch.cat([torch.where(round_out[3], torch.inf, pool.dists), staged_d], 1)
+    # one beam step of the search at ef = 64: Q rows of R neighbors, and a
+    # 512-slot visited table per query that already holds R ids
+    q = queries.shape[0]
+    g = torch.Generator(dev).manual_seed(SEED + 5)
+    sel = torch.randint(0, n, (q,), generator=g, device=dev)
+    nbrs = pool.ids[sel].contiguous()
+    table = torch.full((q, 512), -1, dtype=torch.int32, device=dev)
+    _table_insert(table, pool.ids[torch.randint(0, n, (q,), generator=g, device=dev)])
+    # init distances: one block of the owner-distance pass
+    blk = 1 << 16
+    owners = x[:blk].repeat_interleave(cfg.s, 0)
+    nv = x[pool.ids[:blk, : cfg.s].clamp_min(0).long()].reshape(-1, d)
+    gt_q = queries[:1024].contiguous()
+    torch.cuda.synchronize()
+
+    rows = []
+
+    def measure(name, source, replaces, kernel, plain, check, nbytes, nops, library, reps):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err, extra = check(got, want)
+        del got, want
+        ms = cuda_ms(kernel, reps)
+        plain_ms = cuda_ms(plain, max(1, reps // 3))
+        lib_ms = cuda_ms(library, reps) if library is not None else None
+        b_ms, b_by = bound(nbytes, nops)
+        rows.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": source,
+                "replaces": replaces,
+                "launches": 0,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": lib_ms,
+            }
+        )
+        lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
+        log(
+            f"[kernels] {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, library {lib}, "
+            f"bound {b_ms:.3f} ms by {b_by}); max abs err {err:.3g}{extra}"
+        )
+
+    def rng_check(got, want):
+        err, ties = check_rng_round(got, want, pool.dists, si, sj)
+        return err, f"; {ties} dst mismatches at near-ties"
+
+    c = n
+    measure(
+        "rng_round",
+        "src/repro_torch/kernels/csrc/rng_round.cu",
+        "src/repro/kernels/rng_round.py:124",
+        lambda: rng_round(x, pool.ids, pool.dists, si, sj),
+        lambda: ref.rng_round_ref(x, pool.ids, pool.dists, si, sj),
+        rng_check,
+        unique_rows(pool.ids) * d * 4 + c * r * 9 + c * p * 20,
+        3 * c * p * d,
+        None,
+        10,
+    )
+
+    def merge_check(got, want):
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError("topr_merge differs from its plain version")
+        return 0.0, "; ids and dists equal"
+
+    b, w = merge_ids.shape
+    measure(
+        "topr_merge",
+        "src/repro_torch/kernels/csrc/topr_merge.cu",
+        "src/repro/kernels/topr_merge.py:58",
+        lambda: topr_merge(merge_ids, merge_d, r),
+        lambda: ref.topr_merge_ref(merge_ids, merge_d, r),
+        merge_check,
+        b * w * 8 + b * r * 8,
+        b * w * math.log2(w),  # the comparisons of a sort per row
+        None,
+        10,
+    )
+
+    def expand_check(got, want):
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])):
+            raise AssertionError("search_expand ids / fresh differ from the plain version")
+        live = want[0] >= 0
+        return close(got[1][live], want[1][live], "search_expand dists"), ""
+
+    live = int((nbrs >= 0).sum())
+    measure(
+        "search_expand",
+        "src/repro_torch/kernels/csrc/search_expand.cu",
+        "src/repro/kernels/search_expand.py:170",
+        lambda: search_expand(x, queries, nbrs, table),
+        lambda: ref.search_expand_ref(x, queries, nbrs, table),
+        expand_check,
+        unique_rows(nbrs) * d * 4 + q * d * 4 + q * r * 13 + min(q * 512, live * 8) * 4,
+        3 * live * d,
+        None,
+        20,
+    )
+
+    m = owners.shape[0]
+    measure(
+        "rowwise_sqdist",
+        "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        "src/repro/kernels/pairwise_l2.py:155",
+        lambda: rowwise_sqdist(owners, nv),
+        lambda: ref.rowwise_sqdist_ref(owners, nv),
+        lambda got, want: (close(got, want, "rowwise_sqdist"), ""),
+        2 * m * d * 4 + m * 4,
+        3 * m * d,
+        lambda: ((owners - nv) ** 2).sum(-1),
+        20,
+    )
+
+    def pairwise_check(got, want):
+        scale = (gt_q * gt_q).sum(-1)[:, None] + (x * x).sum(-1)[None, :]
+        err = (got - want).abs()
+        if bool((err > PAIRWISE_REL * scale + 1e-6).any()):
+            raise AssertionError("pairwise_sqdist outside its tolerance")
+        return float(err.max()), ""
+
+    mq = gt_q.shape[0]
+    measure(
+        "pairwise_sqdist",
+        "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        "src/repro/kernels/pairwise_l2.py:80",
+        lambda: pairwise_sqdist(gt_q, x),
+        lambda: ref.pairwise_sqdist_ref(gt_q, x),
+        pairwise_check,
+        (mq + n) * d * 4 + mq * n * 4,
+        2 * mq * n * d,
+        lambda: torch.cdist(gt_q, x).square(),
+        5,
+    )
+    log(f"[kernels] done in {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4
+# ---------------------------------------------------------------------------
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_parity(dev, cfg) -> None:
+    t0 = time.perf_counter()
+    g = torch.Generator(dev).manual_seed(SEED + 10)
+    x = synthetic.make_preset(g, "sift-like", N_PARITY)
+    queries = synthetic.queries_from(g, x, Q_PARITY)
+    truth = brute_force_knn(x, queries, 10, device=dev)
+    recalls = {}
+    for name in ("auto", "ref"):
+        with ops.backend(name):
+            pool, build_s = timed(
+                lambda: build_graph(x, cfg, draws=Draws(SEED + 11, dev), device=dev)
+            )
+            res, search_s = timed(
+                lambda: search(x, pool.ids, queries, k=10, ef=64, visited="hashed", device=dev)
+            )
+        recalls[name] = recall_at_k(res.ids, truth)
+        log(
+            f"[parity] n={N_PARITY} backend={name}: build {build_s:.2f}s, "
+            f"search {search_s:.2f}s, recall@10 {recalls[name]:.4f}"
+        )
+    gap = abs(recalls["auto"] - recalls["ref"])
+    if gap > 0.01:
+        raise AssertionError(f"kernel and plain builds differ by {gap:.4f} recall@10")
+    log(f"[parity] |kernels - plain| = {gap:.4f} <= 0.01; done in {time.perf_counter() - t0:.1f}s")
+
+
+def phase_main(x, queries, cfg, rows):
+    t0 = time.perf_counter()
+    dev = x.device
+    n, k = x.shape[0], 10
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    pool, build_s = timed(lambda: build_graph(x, cfg, draws=Draws(SEED + 2, dev), device=dev))
+    degree = float(pool.degree().float().mean())
+    log(f"[main] build n={n} d={x.shape[1]} {cfg}: {build_s:.2f}s, mean degree {degree:.2f}")
+    truth, gt_s = timed(lambda: brute_force_knn(x, queries, k, device=dev))
+    log(f"[main] ground truth for {queries.shape[0]} queries: {gt_s:.2f}s")
+    for ef in EF_MAIN:
+        steps = ops.launch_counts()["search_expand"]
+        res, s = timed(
+            lambda: search(x, pool.ids, queries, k=k, ef=ef, visited="hashed", device=dev)
+        )
+        steps = ops.launch_counts()["search_expand"] - steps
+        ok = (
+            res.ids.shape == (queries.shape[0], k)
+            and bool(((res.ids >= 0) & (res.ids < n)).all())
+            and bool(torch.isfinite(res.dists).all())
+        )
+        if not ok:
+            raise AssertionError(f"search at ef={ef} returned empty or out-of-range results")
+        rec = recall_at_k(res.ids, truth)
+        log(
+            f"[main] search ef={ef} hashed: {s:.2f}s, {steps} steps, "
+            f"{queries.shape[0] / s:.0f} QPS, "
+            f"mean n_expanded {float(res.n_expanded.float().mean()):.1f}, recall@10 {rec:.4f} "
+            f"(floor {RECALL_FLOOR[ef]})"
+        )
+        if rec < RECALL_FLOOR[ef]:
+            raise AssertionError(f"recall@10 {rec:.4f} below the floor {RECALL_FLOOR[ef]}")
+    counts = ops.launch_counts()
+    log(f"[main] launches: {counts}")
+    log(f"[main] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    missing = [name for name, c in counts.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    log(f"[main] done in {time.perf_counter() - t0:.1f}s")
+    return pool, truth
+
+
+# ---------------------------------------------------------------------------
+# phase 5: where the time goes (after the main path's counts are read)
+# ---------------------------------------------------------------------------
+
+
+def _device_us(evt) -> float:
+    """Device time of a kernel row (operator rows repeat their kernels' time)."""
+    if evt.device_type != torch.autograd.DeviceType.CUDA:
+        return 0.0
+    return float(evt.self_device_time_total)
+
+
+def profiled(label: str, fn, top: int = 8) -> None:
+    """Wall time, device-busy share and the top device-time ops of one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in events) / 1e6
+    if not events:
+        log(f"[profile] {label}: {wall:.3f}s wall; the profiler saw no device time")
+        return
+    log(f"[profile] {label}: {wall:.3f}s wall, device busy {busy:.3f}s ({busy / wall:.1%})")
+    for e in sorted(events, key=_device_us, reverse=True)[:top]:
+        log(f"[profile]   {_device_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+
+
+def phase_profile(x, queries, pool, truth, cfg) -> None:
+    t0 = time.perf_counter()
+    dev = x.device
+    draws = Draws(SEED + 3, dev)
+    profiled("one propagation round, n=1M", lambda: update_round(x, pool, draws, cfg, 0, 0))
+    profiled(
+        "search ef=64 hashed, 10,000 queries",
+        lambda: search(x, pool.ids, queries, k=10, ef=64, visited="hashed", device=dev),
+    )
+    # does the hashed table's default cap (512 slots) cost recall at n = 1M?
+    for visited, cap in (("hashed", 8192), ("dense", None)):
+        res, s = timed(
+            lambda: search(
+                x, pool.ids, queries, k=10, ef=64, visited=visited, visited_cap=cap, device=dev
+            )
+        )
+        log(
+            f"[profile] search ef=64 {visited} cap={cap}: {s:.2f}s, "
+            f"mean n_expanded {float(res.n_expanded.float().mean()):.1f}, "
+            f"recall@10 {recall_at_k(res.ids, truth):.4f}"
+        )
+    # graph quality: the share of 1,000 vertices' true 10-NN found in their pools
+    g = torch.Generator(dev).manual_seed(SEED + 6)
+    sample = torch.randint(0, x.shape[0], (1000,), generator=g, device=dev)
+    knn = brute_force_knn(x, x[sample], 11, device=dev)[:, 1:]  # drop the vertex itself
+    log(f"[profile] graph 10-NN recall of the pools: {recall_at_k(pool.ids[sample], knn):.4f}")
+    log(f"[profile] done in {time.perf_counter() - t0:.1f}s")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a card")
+    t0 = time.perf_counter()
+    phase_device()
+    dev = torch.device("cuda", 0)
+    cfg = SIFT1M.build
+    g = torch.Generator(dev).manual_seed(SEED)
+    x = synthetic.make_preset(g, "sift-like", SIFT1M.n)
+    queries = synthetic.queries_from(g, x, SIFT1M.n_queries)
+    rows = phase_kernels(x, queries, Draws(SEED + 1, dev), cfg)
+    torch.cuda.empty_cache()
+    phase_parity(dev, cfg)
+    torch.cuda.empty_cache()
+    pool, truth = phase_main(x, queries, cfg, rows)
+    phase_profile(x, queries, pool, truth, cfg)
+    log(f"[total] {time.perf_counter() - t0:.1f}s")
+    print(json.dumps({"kernels": rows}))
+    kind = torch.cuda.get_device_name(0)
+    device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,70 @@
+"""The build's random draws, through one seam.
+
+The JAX package draws with `jax.random` (threefry), which `torch.Generator`
+cannot reproduce. So every random number of a build comes from a `Draws`:
+
+  * `init_ids(n, s)`: the (N, S) raw ids of the random S-NN init, uniform
+    in [0, N-1) (`repro/core/pools.py::init_random`);
+  * `slot_pairs(t1, t2, chunk, c, r, p)`: the (C, P) sampled slot indices
+    si, sj in [0, R) of one chunk of one propagation round
+    (`repro/core/grnnd.py::_sample_slot_pairs`); `chunk` is None when the
+    round runs in one piece.
+
+`Draws` derives a fresh generator from (seed, tag) for every call, so it is
+stateless: two builds with the same `Draws` see the same numbers. Tests
+hand the reference's own draws to `RecordedDraws`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class Draws:
+    """Seeded draws from `torch.Generator`s on `device`."""
+
+    def __init__(self, seed: int = 0, device: str | torch.device = "cuda"):
+        self.seed = int(seed)
+        self.device = torch.device(device)
+
+    def _gen(self, *tag: int) -> torch.Generator:
+        state = np.random.SeedSequence([self.seed, *tag]).generate_state(2, np.uint64)
+        return torch.Generator(self.device).manual_seed(int(state[0] >> np.uint64(1)))
+
+    def _randint(self, hi: int, shape: tuple[int, ...], *tag: int) -> torch.Tensor:
+        return torch.randint(
+            0, hi, shape, generator=self._gen(*tag), device=self.device, dtype=torch.int32
+        )
+
+    def init_ids(self, n: int, s: int) -> torch.Tensor:
+        return self._randint(n - 1, (n, s), 0)
+
+    def slot_pairs(self, t1: int, t2: int, chunk: int | None, c: int, r: int, p: int):
+        tag = (1, t1, t2, 0 if chunk is None else chunk + 1)
+        return (
+            self._randint(r, (c, p), *tag, 0),
+            self._randint(r, (c, p), *tag, 1),
+        )
+
+
+class RecordedDraws(Draws):
+    """Draws given up front: `init` (N, S) and `pairs[(t1, t2, chunk)] = (si, sj)`."""
+
+    def __init__(self, init, pairs: dict):
+        self.init = torch.as_tensor(np.array(init, dtype=np.int32))
+        self.pairs = {
+            key: tuple(torch.as_tensor(np.array(a, dtype=np.int32)) for a in v)
+            for key, v in pairs.items()
+        }
+
+    def init_ids(self, n: int, s: int) -> torch.Tensor:
+        if self.init.shape != (n, s):
+            raise ValueError(f"recorded init ids are {tuple(self.init.shape)}, wanted {(n, s)}")
+        return self.init
+
+    def slot_pairs(self, t1: int, t2: int, chunk: int | None, c: int, r: int, p: int):
+        si, sj = self.pairs[(t1, t2, chunk)]
+        if si.shape != (c, p):
+            raise ValueError(f"recorded slot pairs are {tuple(si.shape)}, wanted {(c, p)}")
+        return si, sj

@@ -1,0 +1,190 @@
+"""Fixed-capacity neighbor pools (GRNND §3.5).
+
+A pool is a pair of tensors over all N vertices:
+
+    ids   (N, R) int32    neighbor vertex ids, -1 marks an empty slot
+    dists (N, R) float32  squared L2 distance to the owning vertex, +inf empty
+
+The paper's atomic WARP_INSERT becomes a deterministic two-stage dataflow,
+as in the JAX package's `core/pools.py`:
+
+  1. `_stage`: a round's (dst, src, dist) insertion requests are ordered by
+     stable sorts (dst-major, dist-minor), capped per destination, and
+     scattered into a per-vertex (N, cap) staging buffer;
+  2. `ops.topr_merge`: per vertex, pool and staging are deduplicated and
+     the R closest survive.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import vecstore as VS
+from repro_torch.kernels import ops
+
+# vertices per block of `_owner_dists`: bounds its two gathered
+# (block * K, D) fp32 matrices (800 MB each at K = 24, D = 128)
+OWNER_BLOCK = 1 << 16
+
+
+class Pool(NamedTuple):
+    ids: torch.Tensor  # (N, R) int32
+    dists: torch.Tensor  # (N, R) float32
+
+    @property
+    def n(self) -> int:
+        return self.ids.shape[0]
+
+    @property
+    def r(self) -> int:
+        return self.ids.shape[1]
+
+    def degree(self) -> torch.Tensor:
+        return (self.ids >= 0).sum(-1)
+
+
+def empty_pool(n: int, r: int, device: str | torch.device = "cpu") -> Pool:
+    return Pool(
+        ids=torch.full((n, r), -1, dtype=torch.int32, device=device),
+        dists=torch.full((n, r), torch.inf, dtype=torch.float32, device=device),
+    )
+
+
+def init_random(draws, x: torch.Tensor, s: int, r: int) -> Pool:
+    """Random S-NN initialization (paper Alg. 3 lines 3-5).
+
+    Each vertex gets S random neighbors from `draws.init_ids` (self-edges
+    shifted off by one), with true distances, in an R-slot pool; repeats are
+    removed and the pool sorted by the merge.
+    """
+    n = VS.nrows(x)
+    if s > r:
+        raise ValueError(f"s={s} must not exceed r={r}")
+    raw = draws.init_ids(n, s).to(device=x.device, dtype=torch.int32)
+    rows = torch.arange(n, dtype=torch.int32, device=x.device)[:, None]
+    # map [0, n-1) onto [0, n) \ {v}: anything >= v shifts up by one
+    ids = torch.where(raw >= rows, raw + 1, raw)
+    dists = _owner_dists(x, rows[:, 0], ids)
+    ids = F.pad(ids, (0, r - s), value=-1)
+    dists = F.pad(dists, (0, r - s), value=torch.inf)
+    return Pool(*ops.topr_merge(ids.contiguous(), dists.contiguous(), r))
+
+
+def _owner_dists(x: torch.Tensor, owners: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """d(x[owner], x[id]) for a (B, K) id matrix; invalid ids -> +inf.
+
+    Worked through in blocks of OWNER_BLOCK vertices; every row is
+    independent, so the blocks give the same values as one pass.
+    """
+    b, k = ids.shape
+    out = torch.empty((b, k), dtype=torch.float32, device=ids.device)
+    for lo in range(0, b, OWNER_BLOCK):
+        hi = min(b, lo + OWNER_BLOCK)
+        idc = ids[lo:hi]
+        xv = VS.take(x, owners[lo:hi]).repeat_interleave(k, dim=0)  # (B*K, D)
+        nv = VS.take(x, idc.clamp_min(0).reshape(-1))  # (B*K, D)
+        d = ops.rowwise_sqdist(xv, nv).reshape(hi - lo, k)
+        out[lo:hi] = torch.where(idc >= 0, d, torch.inf)
+    return out
+
+
+class Requests(NamedTuple):
+    """A flat batch of insertion requests: put `src` into `dst`'s pool."""
+
+    dst: torch.Tensor  # (M,) int32, -1 = inactive
+    src: torch.Tensor  # (M,) int32
+    dist: torch.Tensor  # (M,) float32  d(dst, src)
+
+
+def concat_requests(*reqs: Requests) -> Requests:
+    return Requests(
+        dst=torch.cat([r.dst for r in reqs]),
+        src=torch.cat([r.src for r in reqs]),
+        dist=torch.cat([r.dist for r in reqs]),
+    )
+
+
+def group_requests(req: Requests, n: int, cap: int, drop_self: bool = True):
+    """Stage a flat Requests batch into per-destination (N, cap) buffers."""
+    return _stage(req.dst, req.src, req.dist, n, cap, drop_self=drop_self)
+
+
+def stage_request_matrix(dst, src, dist, n: int, cap: int):
+    """Stage a round's (N, P) request matrices: -> ids / dists (N, cap)."""
+    return _stage(dst.reshape(-1), src.reshape(-1), dist.reshape(-1), n, cap)
+
+
+def _stage(dst, src_in, dist_in, n: int, cap: int, drop_self: bool = True):
+    """Stage requests into per-destination buffers: -> ids / dists (N, cap).
+
+    Requests are ordered dist-minor / dst-major with two stable sorts,
+    ranked within their destination segment, and the first `cap` per
+    destination scattered. Self-inserts (dst == src) and inactive requests
+    (dst < 0) are dropped, and so is every repeat of a (dst, src) pair, so
+    that repeats cannot crowd out distinct candidates at the cap.
+    """
+    dev = dst.device
+    if drop_self:
+        dst = torch.where(dst == src_in, -1, dst)
+
+    # dedup identical (dst, src) requests: sort src-minor / dst-major and
+    # invalidate repeats
+    o1 = torch.argsort(src_in, stable=True)
+    o2 = torch.argsort(torch.where(dst >= 0, dst, n)[o1], stable=True)
+    dperm = o1[o2]
+    dst_p, src_p = dst[dperm], src_in[dperm]
+    dup = torch.zeros_like(dst_p, dtype=torch.bool)
+    dup[1:] = (dst_p[1:] == dst_p[:-1]) & (src_p[1:] == src_p[:-1]) & (dst_p[1:] >= 0)
+    dst = torch.empty_like(dst)
+    dst[dperm] = torch.where(dup, -1, dst_p)  # dperm is a permutation
+
+    dist = torch.where(dst >= 0, dist_in, torch.inf)
+    dst_key = torch.where(dst >= 0, dst, n)  # inactive sorts to the end
+
+    # stable composed sort: dist-minor, then dst-major
+    order1 = torch.argsort(dist, stable=True)
+    order2 = torch.argsort(dst_key[order1], stable=True)
+    perm = order1[order2]
+    dst_s, src_s, dist_s = dst_key[perm], src_in[perm], dist[perm]
+
+    # rank within each destination segment. dst_s is sorted, so segment v
+    # starts at the first position holding v: one binary search per key
+    # value gives the starts the reference's max-scan gives (on the card,
+    # torch.cummax over the N·P entries took three quarters of a round and
+    # a histogram of them, whose atomics collide on sorted keys, 40%)
+    keys = torch.arange(n + 1, dtype=dst_s.dtype, device=dev)
+    seg_start = torch.searchsorted(dst_s, keys)[dst_s.long()]
+    rank = torch.arange(dst_s.shape[0], device=dev) - seg_start
+
+    # scatter the kept requests; the rest go to one extra slot, dropped after
+    keep = (rank < cap) & (dst_s < n)
+    flat = torch.where(keep, dst_s.long() * cap + rank, n * cap)
+    staged_ids = torch.full((n * cap + 1,), -1, dtype=torch.int32, device=dev)
+    staged_dists = torch.full((n * cap + 1,), torch.inf, dtype=torch.float32, device=dev)
+    staged_ids.scatter_(0, flat, src_s.int())
+    staged_dists.scatter_(0, flat, dist_s.float())
+    return staged_ids[:-1].view(n, cap), staged_dists[:-1].view(n, cap)
+
+
+def merge_into(pool: Pool, cand_ids: torch.Tensor, cand_dists: torch.Tensor) -> Pool:
+    """pool ∪ candidates -> R closest unique (the WARP_INSERT analogue)."""
+    ids = torch.cat([pool.ids, cand_ids], dim=-1)
+    dists = torch.cat([pool.dists, cand_dists], dim=-1)
+    return Pool(*ops.topr_merge(ids, dists, pool.r))
+
+
+def insert_requests(pool: Pool, req: Requests, cap: int | None = None) -> Pool:
+    """Group a request batch and merge it into the pool (both stages)."""
+    cap = cap if cap is not None else pool.r
+    staged_ids, staged_dists = group_requests(req, pool.n, cap)
+    return merge_into(pool, staged_ids, staged_dists)
+
+
+def build_requests_into_empty(n: int, r: int, req: Requests, cap: int | None = None) -> Pool:
+    """Materialize a fresh pool (the cleared write buffer) from requests only."""
+    cap = cap if cap is not None else r
+    staged_ids, staged_dists = group_requests(req, n, max(cap, r))
+    return Pool(*ops.topr_merge(staged_ids.contiguous(), staged_dists.contiguous(), r))

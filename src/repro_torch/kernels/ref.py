@@ -1,0 +1,152 @@
+"""Plain PyTorch versions of the five kernels on the build-and-search path.
+
+Each function computes what its counterpart in the JAX package's
+`repro/kernels/ref.py` computes (fp32 storage, unfiltered, no tombstone
+mask). They are the port's own oracle: the CPU tests run them, and on the
+card `chip_smoke.py` holds each hand-written CUDA kernel against them on
+the same inputs. On the main path they run only for CPU tensors or under
+`ops.backend("ref")`.
+
+`pairwise_sqdist_ref` uses `torch.matmul`; on a card that is full fp32
+only while `torch.backends.cuda.matmul.allow_tf32` is False (PyTorch's
+default), which `chip_smoke.py` sets explicitly.
+
+`rng_round_ref` and `topr_merge_ref` work through their rows in blocks:
+the results are row-independent, so blocking changes no value, and it
+keeps the gathered (rows, P, D) and (rows, W, W) intermediates a few
+hundred MB at N = 1M.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "HASH_PROBES",
+    "pairwise_sqdist_ref",
+    "rowwise_sqdist_ref",
+    "rng_round_ref",
+    "search_expand_ref",
+    "topr_merge_ref",
+    "visited_probe_positions",
+]
+
+# Linear-probe window of the open-addressed visited table: shared by the
+# oracle, the CUDA kernel and the table insert in core/search.py.
+HASH_PROBES = 8
+
+# elements per block of the blocked oracles (~256 MB of fp32)
+_BLOCK_ELEMS = 1 << 26
+
+
+def _row_blocks(rows: int, per_row: int):
+    step = max(1, _BLOCK_ELEMS // max(per_row, 1))
+    for lo in range(0, rows, step):
+        yield lo, min(rows, lo + step)
+
+
+def pairwise_sqdist_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(M, D) x (N, D) -> (M, N) squared L2, as max(|x|^2 + |y|^2 - 2 x.y, 0)."""
+    x = x.float()
+    y = y.float()
+    xx = (x * x).sum(-1, keepdim=True)
+    yy = (y * y).sum(-1)[None, :]
+    return torch.clamp_min(xx + yy - 2.0 * (x @ y.T), 0.0)
+
+
+def rowwise_sqdist_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(M, D) x (M, D) -> (M,) squared L2 of corresponding rows."""
+    d = x.float() - y.float()
+    return (d * d).sum(-1)
+
+
+def rng_round_ref(x, ids, dists, si, sj):
+    """One disordered RNG propagation round over a (C, R) pool chunk.
+
+    For each sampled slot pair (si, sj) of a vertex: dij = |x[ni] - x[nj]|^2;
+    the pair hits when both slots hold distinct ids and dij < max(dvi, dvj).
+    Returns (dst (C,P) int32: the closer id or -1 on a miss, src (C,P)
+    int32: the farther id, dij (C,P) fp32, kill (C,R) bool: OR of hits on
+    the farther endpoint's slot).
+    """
+    c, r = ids.shape
+    p = si.shape[1]
+    si64, sj64 = si.long(), sj.long()
+    ni = ids.gather(1, si64)
+    nj = ids.gather(1, sj64)
+    dvi = dists.gather(1, si64)
+    dvj = dists.gather(1, sj64)
+    valid = (ni >= 0) & (nj >= 0) & (ni != nj)
+
+    dij = torch.empty((c, p), dtype=torch.float32, device=ids.device)
+    for lo, hi in _row_blocks(c, p * x.shape[1]):
+        xi = x[ni[lo:hi].clamp_min(0).reshape(-1).long()].float()
+        xj = x[nj[lo:hi].clamp_min(0).reshape(-1).long()].float()
+        diff = xi - xj
+        dij[lo:hi] = (diff * diff).sum(-1).reshape(hi - lo, p)
+
+    hit = valid & (dij < torch.maximum(dvi, dvj))
+    i_is_far = dvi > dvj
+    far = torch.where(i_is_far, ni, nj)
+    close = torch.where(i_is_far, nj, ni)
+    far_slot = torch.where(i_is_far, si64, sj64)
+    dst = torch.where(hit, close, -1)
+    kill = torch.zeros((c, r), dtype=torch.int32, device=ids.device)
+    kill.scatter_reduce_(1, far_slot, hit.int(), reduce="amax")
+    return dst.int(), far.int(), dij, kill.bool()
+
+
+def visited_probe_positions(ids: torch.Tensor, h: int) -> torch.Tensor:
+    """Probe positions (..., HASH_PROBES) of ids in an H-slot visited table:
+    slot l of id v is (max(v, 0) % H + l) % H (identity-mod hash, linear
+    probing; injective when H >= N)."""
+    base = ids.clamp_min(0) % h
+    offs = torch.arange(HASH_PROBES, dtype=base.dtype, device=base.device)
+    return (base[..., None] + offs) % h
+
+
+def search_expand_ref(x, queries, nbrs, table):
+    """One beam-expansion step over (Q, R) neighbor ids.
+
+    Returns (ids (Q,R) int32: -1 where nbrs < 0, dists (Q,R) fp32: the
+    squared query->neighbor distance, +inf there, fresh (Q,R) bool: live
+    and absent from the query's visited-table probe window).
+    """
+    q, r = nbrs.shape
+    ok = nbrs >= 0
+    nv = x[nbrs.clamp_min(0).long()].float()  # (Q, R, D)
+    diff = queries.float()[:, None, :] - nv
+    d = torch.where(ok, (diff * diff).sum(-1), torch.inf)
+    pos = visited_probe_positions(nbrs, table.shape[1])  # (Q, R, PL)
+    vals = table.gather(1, pos.reshape(q, -1).long()).reshape(q, r, HASH_PROBES)
+    found = (vals == nbrs[..., None]).any(-1)
+    return torch.where(ok, nbrs, -1).int(), d, ok & ~found
+
+
+def topr_merge_ref(ids: torch.Tensor, dists: torch.Tensor, r: int):
+    """Per row of (B, W) candidates: the r closest unique valid entries.
+
+    An id of -1 counts as +inf; a slot whose id also sits at an earlier
+    position is dropped; the survivors are taken in (dist, position) order
+    (a stable sort); empty output slots are (-1, +inf).
+    """
+    ids = ids.int()
+    dists = torch.where(ids < 0, torch.inf, dists.float())
+    b, w = ids.shape
+    if r > w:  # widen so the output is always (B, r)
+        ids = torch.nn.functional.pad(ids, (0, r - w), value=-1)
+        dists = torch.nn.functional.pad(dists, (0, r - w), value=torch.inf)
+        w = r
+    earlier = torch.tril(torch.ones((w, w), dtype=torch.bool, device=ids.device), -1)
+    out_i = torch.empty((b, r), dtype=torch.int32, device=ids.device)
+    out_d = torch.empty((b, r), dtype=torch.float32, device=ids.device)
+    for lo, hi in _row_blocks(b, w * w):
+        bi, bd = ids[lo:hi], dists[lo:hi]
+        dup = ((bi[:, :, None] == bi[:, None, :]) & earlier).any(-1)
+        bd = torch.where(dup, torch.inf, bd)
+        bi = torch.where(dup, -1, bi)
+        order = torch.argsort(bd, dim=-1, stable=True)[:, :r]
+        od = bd.gather(1, order)
+        out_d[lo:hi] = od
+        out_i[lo:hi] = torch.where(torch.isinf(od), -1, bi.gather(1, order))
+    return out_i, out_d

@@ -1,0 +1,134 @@
+"""The hand-written CUDA kernels against their plain versions, on the card.
+
+Marked `cuda`: without a card every test here skips. On a machine with one:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Shapes cover the ragged cases the main path does not (D not a multiple of 4,
+W < r, M and N off the 64-row tiles, the 1-slot dense-mode table).
+Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other summation
+order); pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition
+cancellation); topr_merge and every integer output exactly, except
+rng_round's hit test within that tolerance of its threshold.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import Draws, GRNNDConfig, brute_force_knn, build_graph, recall_at_k, search
+from repro_torch.core.search import _table_insert
+from repro_torch.data import synthetic
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.pairwise_l2 import pairwise_sqdist, rowwise_sqdist
+from repro_torch.kernels.rng_round import rng_round
+from repro_torch.kernels.search_expand import search_expand
+from repro_torch.kernels.topr_merge import topr_merge
+
+pytestmark = pytest.mark.cuda
+
+RTOL, ATOL = 1e-5, 1e-4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _launched(name, fn):
+    before = ops.launch_counts()[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize(
+    "m,n,d", [(1, 1000, 128), (70, 130, 33), (1024, 4096, 128), (5, 64, 960)]
+)
+def test_pairwise_sqdist_kernel(dev, m, n, d):
+    g = torch.Generator(dev).manual_seed(m + n)
+    x = torch.randn((m, d), generator=g, device=dev)
+    y = torch.randn((n, d), generator=g, device=dev)
+    got = _launched("pairwise_sqdist", lambda: pairwise_sqdist(x, y))
+    want = ref.pairwise_sqdist_ref(x, y)
+    scale = (x * x).sum(-1)[:, None] + (y * y).sum(-1)[None, :]
+    assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+    assert (got >= 0).all()
+
+
+@pytest.mark.parametrize("m,d", [(1, 128), (1000, 33), (100_000, 128)])
+def test_rowwise_sqdist_kernel(dev, m, d):
+    g = torch.Generator(dev).manual_seed(m)
+    x = torch.randn((m, d), generator=g, device=dev)
+    y = torch.randn((m, d), generator=g, device=dev)
+    got = _launched("rowwise_sqdist", lambda: rowwise_sqdist(x, y))
+    torch.testing.assert_close(got, ref.rowwise_sqdist_ref(x, y), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b,w,r", [(1000, 96, 48), (64, 7, 12), (300, 560, 512), (5, 33, 1)])
+def test_topr_merge_kernel_is_exact(dev, b, w, r):
+    g = torch.Generator(dev).manual_seed(b + w)
+    ids = torch.randint(-1, max(2, w // 2), (b, w), generator=g, device=dev, dtype=torch.int32)
+    dists = torch.rand((b, w), generator=g, device=dev)
+    dists[:, ::3] = (dists[:, ::3] * 10).round() / 10  # exact ties
+    dists[torch.rand((b, w), generator=g, device=dev) < 0.1] = torch.inf
+    gi, gd = _launched("topr_merge", lambda: topr_merge(ids, dists, r))
+    wi, wd = ref.topr_merge_ref(ids, dists, r)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("n,d,c,r,p", [(5000, 128, 3000, 48, 48), (700, 33, 700, 12, 16)])
+def test_rng_round_kernel(dev, n, d, c, r, p):
+    g = torch.Generator(dev).manual_seed(n)
+    x = synthetic.vector_dataset(g, n, d)
+    ids = torch.randint(0, n, (c, r), generator=g, device=dev, dtype=torch.int32)
+    ids[torch.rand((c, r), generator=g, device=dev) < 0.2] = -1
+    owners = x[:c].repeat_interleave(r, 0)
+    dists = ref.rowwise_sqdist_ref(owners, x[ids.clamp_min(0).long()].reshape(-1, d))
+    dists = torch.where(ids >= 0, dists.reshape(c, r), torch.inf)
+    si = torch.randint(0, r, (c, p), generator=g, device=dev, dtype=torch.int32)
+    sj = torch.randint(0, r, (c, p), generator=g, device=dev, dtype=torch.int32)
+    got = _launched("rng_round", lambda: rng_round(x, ids, dists, si, sj))
+    want = ref.rng_round_ref(x, ids, dists, si, sj)
+    torch.testing.assert_close(got[2], want[2], rtol=RTOL, atol=ATOL)
+    assert torch.equal(got[1], want[1])
+    thr = torch.maximum(dists.gather(1, si.long()), dists.gather(1, sj.long()))
+    near = (want[2] - thr).abs() <= ATOL + RTOL * thr.abs()
+    assert not ((got[0] != want[0]) & ~near).any()
+    bad_rows = (got[3] != want[3]).any(1)
+    assert not (bad_rows & ~near.any(1)).any()
+
+
+@pytest.mark.parametrize("n,d,q,r,h", [(20_000, 128, 500, 48, 512), (900, 33, 64, 16, 1)])
+def test_search_expand_kernel(dev, n, d, q, r, h):
+    g = torch.Generator(dev).manual_seed(n)
+    x = torch.randn((n, d), generator=g, device=dev)
+    queries = torch.randn((q, d), generator=g, device=dev)
+    nbrs = torch.randint(-1, n, (q, r), generator=g, device=dev, dtype=torch.int32)
+    table = torch.full((q, h), -1, dtype=torch.int32, device=dev)
+    if h > 1:
+        _table_insert(table, nbrs[:, : r // 2])
+    gi, gd, gf = _launched("search_expand", lambda: search_expand(x, queries, nbrs, table))
+    wi, wd, wf = ref.search_expand_ref(x, queries, nbrs, table)
+    assert torch.equal(gi, wi) and torch.equal(gf, wf)
+    torch.testing.assert_close(gd, wd, rtol=RTOL, atol=ATOL)
+
+
+def test_build_and_search_on_the_card_match_the_plain_path(dev):
+    g = torch.Generator(dev).manual_seed(0)
+    x = synthetic.make_preset(g, "sift-like", 4000)
+    queries = synthetic.queries_from(g, x, 200)
+    cfg = GRNNDConfig(s=12, r=24, t1=3, t2=3, pairs_per_vertex=24)
+    truth = brute_force_knn(x, queries, 10, device=dev)
+    recalls = []
+    for name in ("auto", "ref"):
+        with ops.backend(name):
+            pool = build_graph(x, cfg, draws=Draws(1, dev), device=dev)
+            res = search(x, pool.ids, queries, k=10, ef=48, visited="hashed", device=dev)
+        recalls.append(recall_at_k(res.ids, truth))
+    assert abs(recalls[0] - recalls[1]) <= 0.01 and recalls[0] >= 0.85, recalls
+    assert np.isfinite(res.dists.cpu().numpy()).all()

@@ -1,0 +1,112 @@
+"""repro_torch.core.search against repro.core.search on the same graph.
+
+The reference builds the graph; `convert.from_jax` hands it to the port, and
+both search it from the same entry. Per step the only float work is the
+query->neighbor distance (fp32 sums in another order, max rel. error ~4e-7),
+so ids, distances and n_expanded must agree except where two candidates tie
+within that error: at least 98% of queries give identical ids and
+n_expanded, and every returned distance agrees to rtol 1e-5 where the ids
+do. The visited table is integer work: `_table_insert` equals the
+reference exactly, and hashed search with visited_cap >= N equals dense.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import grnnd as jgrnnd
+from repro.core.search import _table_insert as j_table_insert
+from repro.core.search import _table_member as j_table_member
+from repro.core.search import default_visited_cap as j_default_visited_cap
+from repro.core.search import medoid as jmedoid
+from repro.core.search import search as jsearch
+from repro.data import synthetic as jsynthetic
+from repro_torch import convert
+from repro_torch.core.search import (
+    EF_CEILING,
+    _table_insert,
+    _table_member,
+    default_visited_cap,
+    medoid,
+    search,
+)
+
+# the suite runs in parallel workers: one intra-op thread each keeps torch
+# from oversubscribing the cores the JAX tests share
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def graph():
+    x = jsynthetic.make_preset(jax.random.PRNGKey(0), "tiny", 900)
+    q = jsynthetic.queries_from(jax.random.PRNGKey(1), x, 96)
+    cfg = jgrnnd.GRNNDConfig(s=8, r=16, t1=3, t2=3, pairs_per_vertex=16)
+    pool = jgrnnd.build_graph(jax.random.PRNGKey(2), x, cfg)
+    tpool, tx = convert.from_jax(pool.ids, pool.dists, x, device="cpu")
+    return x, pool, q, tx, tpool, torch.from_numpy(np.array(q))
+
+
+@pytest.mark.parametrize("visited,cap", [("dense", None), ("hashed", None), ("hashed", 64)])
+@pytest.mark.parametrize("ef", [16, 48])
+def test_search_matches_reference_on_the_same_graph(graph, visited, cap, ef):
+    x, pool, q, tx, tpool, tq = graph
+    entry = jmedoid(x)
+    want = jsearch(x, pool.ids, q, k=10, ef=ef, entry=entry, visited=visited, visited_cap=cap)
+    got = search(
+        tx,
+        tpool.ids,
+        tq,
+        k=10,
+        ef=ef,
+        entry=int(entry),
+        visited=visited,
+        visited_cap=cap,
+        device="cpu",
+    )
+    assert got.ids.dtype == torch.int32 and got.n_expanded.dtype == torch.int32
+    wi, gi = np.asarray(want.ids), got.ids.numpy()
+    same = (wi == gi).all(1) & (np.asarray(want.n_expanded) == got.n_expanded.numpy())
+    assert same.mean() >= 0.98, same.mean()
+    np.testing.assert_allclose(got.dists.numpy()[same], np.asarray(want.dists)[same], rtol=1e-5)
+
+
+def test_medoid_matches_reference(graph):
+    x, _, _, tx, _, _ = graph
+    assert int(medoid(tx)) == int(jmedoid(x))
+
+
+@pytest.mark.parametrize("ef", [16, 48])
+def test_hashed_at_full_cap_equals_dense(graph, ef):
+    _, _, _, tx, tpool, tq = graph
+    dense = search(tx, tpool.ids, tq, ef=ef, visited="dense", device="cpu")
+    hashed = search(tx, tpool.ids, tq, ef=ef, visited="hashed", visited_cap=900, device="cpu")
+    for a, b in zip(dense, hashed):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("h", [8, 64])
+def test_table_insert_equals_reference_exactly(h):
+    rng = np.random.default_rng(h)
+    table = np.full((12, h), -1, np.int32)
+    want = jnp.asarray(table)
+    got = torch.from_numpy(table.copy())
+    for _ in range(4):  # repeated inserts fill the tables past their windows
+        ids = rng.integers(-1, 300, (12, 16)).astype(np.int32)
+        want = jax.jit(j_table_insert)(want, jnp.asarray(ids))
+        _table_insert(got, torch.from_numpy(ids))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        member = _table_member(got, torch.from_numpy(ids)).numpy()
+        np.testing.assert_array_equal(member, np.asarray(j_table_member(want, jnp.asarray(ids))))
+
+
+def test_search_rejects_what_is_not_ported(graph):
+    _, _, _, tx, tpool, tq = graph
+    for kw in ("valid", "rescore", "labels", "filter", "ids_map"):
+        with pytest.raises(NotImplementedError, match=kw):
+            search(tx, tpool.ids, tq, device="cpu", **{kw: object()})
+    with pytest.raises(ValueError):
+        search(tx, tpool.ids, tq, k=10, ef=8, device="cpu")
+    assert default_visited_cap(64) == j_default_visited_cap(64) == 512
+    assert EF_CEILING == 512
