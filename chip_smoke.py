@@ -1,30 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GRNND build and beam search on one NVIDIA card.
+"""Drive the PyTorch port's GRNND build, beam search and dynamic index on one
+NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, on a machine with a card
 
 Phases, each printing its own lines with seconds:
 
   1. device: the card's name and power limit, the torch / CUDA versions, and
-     the kernels built from `src/repro_torch/kernels/csrc` (one nvcc each);
-  2. each of the five hand-written kernels against its plain PyTorch version
-     on the same CUDA inputs, at the shapes the SIFT1M-shaped main path gives
-     it, with kernel / plain / library times and the least time the card
-     could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s);
-  3. build parity at n = 100,000: one build and search through the kernels,
-     one through `ops.backend("ref")`, with the same draws; their recall@10
-     at ef = 64 over 1,000 queries agrees within 0.01;
+     the kernels built from `src/repro_torch/kernels/csrc` (one nvcc each,
+     all started together);
+  2. each hand-written kernel, and each storage (bf16, int8) and tombstone
+     variant, against its plain PyTorch version on the same CUDA inputs, at
+     the shapes the SIFT1M-shaped paths give it, with kernel / plain /
+     library times and the least time the card could take (bytes over
+     3.35 TB/s or fp32 operations over 67 TFLOP/s);
+  3. parity at n = 100,000: one fp32 build and one int8 build (searched with
+     an fp32 rescore) through the kernels, each again through
+     `ops.backend("ref")` with the same draws; recall@10 at ef = 64 over
+     1,000 queries agrees within 0.01;
   4. the main path at SIFT1M's shape (`sift-like`, n = 1,000,000, d = 128,
      10,000 queries, the SIFT1M build config): build, brute-force ground
      truth, hashed-visited search at ef 64 and 128; every kernel must have
      launched, and recall@10 must clear a floor that catches a broken graph;
-  5. where the time goes: torch.profiler over one propagation round and one
-     search, the search with a larger visited table and with the dense one,
-     and the share of true 10-NN the built pools hold.
+  4b. the dynamic index at int8 traversal with an fp32 rescore tier on the
+     same corpus: build on rows [0, 900,000), construct (the int8 re-base),
+     insert the last 100,000 rows in 10 batches of 10,000, search, delete
+     100,000 labels, search again, compact; recall@10 must clear 0.50, no
+     deleted label may come back, and a dense search of 1,000 queries must
+     return identical ids before and after compaction;
+  4c. the bf16 path, whose launches the bf16 rows report: the same build on
+     rows [0, 900,000), a dynamic index at bf16 traversal (the bf16 re-base),
+     the same 10 insert batches, and a search with the fp32 rescore;
+     recall@10 must clear the floor of 4b;
+  5. where the time goes: torch.profiler over one propagation round, one
+     search, one insert batch and one dynamic search, the static search
+     with a larger visited table and with the dense one, and the share of
+     true 10-NN the built pools hold.
 
-Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
-Any failure raises and the exit code is non-zero; without a card the script
-exits non-zero before printing a result.
+Each path (4, 4b and 4c) runs with the launch counts set to
+0 just before it and read just after; every kernel it runs must have
+launched. Then one JSON line {"kernels": [...]} and, last,
+{"ok": true, "device": ...}. Any failure raises and the exit code is
+non-zero; without a card the script exits non-zero before printing a result.
 """
 
 from __future__ import annotations
@@ -43,8 +60,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs.grnnd_paper import SIFT1M  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     Draws,
+    DynamicConfig,
+    DynamicIndex,
     brute_force_knn,
     build_graph,
+    encode,
     init_random,
     recall_at_k,
     search,
@@ -54,6 +74,7 @@ from repro_torch.core.pools import stage_request_matrix  # noqa: E402
 from repro_torch.core.search import _table_insert  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.gather_l2 import gather_sqdist  # noqa: E402
 from repro_torch.kernels.pairwise_l2 import pairwise_sqdist, rowwise_sqdist  # noqa: E402
 from repro_torch.kernels.rng_round import rng_round  # noqa: E402
 from repro_torch.kernels.search_expand import search_expand  # noqa: E402
@@ -67,9 +88,34 @@ EF_MAIN = (64, 128)
 # recall@10 floors of the n = 1M main path: they catch a broken graph and
 # rank nothing (PERF.md gives the measured values beside them)
 RECALL_FLOOR = {64: 0.60, 128: 0.75}
-# fp32 tolerances: other summation orders than the plain versions
+# fp32 tolerances: other summation orders than the plain versions (the
+# bf16 / int8 dequant is bitwise the plain version's, so the same hold)
 RTOL, ATOL = 1e-5, 1e-4
 PAIRWISE_REL = 1e-5  # of |x|^2 + |y|^2 (norm-decomposition cancellation)
+# the dynamic phase (fig10's protocol at SIFT1M's shape)
+DYN_BASE, DYN_BATCH, DYN_DELETE, DYN_COMPACT_Q = 900_000, 10_000, 100_000, 1_000
+DYN_CFG = DynamicConfig(
+    precision="int8", seed_k=12, seed_ef=64, refine_rounds=2, pairs_per_vertex=48
+)
+DYN_RECALL_FLOOR = 0.50  # the static fp32 graph reads 0.638 here
+# the kernels each path must launch (launch-count names, kernels/_build.py)
+MAIN_KERNELS = ("rng_round", "topr_merge", "search_expand", "rowwise_sqdist", "pairwise_sqdist")
+DYN_KERNELS = (
+    "gather_sqdist/int8",
+    "rng_round/int8",
+    "search_expand/int8+valid",
+    "pairwise_sqdist/int8",
+    "topr_merge",
+    "rowwise_sqdist",
+)
+BF16_KERNELS = (
+    "gather_sqdist/bf16",
+    "rng_round/bf16",
+    "search_expand/bf16+valid",
+    "pairwise_sqdist/bf16",
+)
+ROW_PATH = {**dict.fromkeys(MAIN_KERNELS, "main"), **dict.fromkeys(BF16_KERNELS, "bf16")}
+ROW_PATH.update(dict.fromkeys(DYN_KERNELS[:4], "dynamic"))
 
 
 def log(msg: str) -> None:
@@ -87,6 +133,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds of device (kernel) time per call, from
+    torch.profiler: unlike `cuda_ms` it leaves out the gaps in which the
+    card waits for the host to launch the next call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()) / 1e3 / reps
 
 
 def bound(nbytes: float, ops_fp32: float) -> tuple[float, str]:
@@ -191,6 +252,7 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         err, extra = check(got, want)
         del got, want
         ms = cuda_ms(kernel, reps)
+        dev_ms = device_ms(kernel, reps)
         plain_ms = cuda_ms(plain, max(1, reps // 3))
         lib_ms = cuda_ms(library, reps) if library is not None else None
         b_ms, b_by = bound(nbytes, nops)
@@ -211,8 +273,8 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         )
         lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
         log(
-            f"[kernels] {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, library {lib}, "
-            f"bound {b_ms:.3f} ms by {b_by}); max abs err {err:.3g}{extra}"
+            f"[kernels] {name}: {ms:.3f} ms, device {dev_ms:.3f} ms (plain {plain_ms:.3f} ms, "
+            f"library {lib}, bound {b_ms:.3f} ms by {b_by}); max abs err {err:.3g}{extra}"
         )
 
     def rng_check(got, want):
@@ -306,6 +368,105 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         lambda: torch.cdist(gt_q, x).square(),
         5,
     )
+
+    # -- the storage variants and the tombstone mask, at the dynamic path's
+    # shapes: the 43.2M-edge re-base of a 900,000-row build, the 130,000-row
+    # frontier of a 10,000-vector insert batch (seed_k 12), a 10,000-query
+    # beam step with ~10% tombstones, and the ground-truth block
+    m6 = DYN_BASE * r
+    owners = torch.arange(DYN_BASE, dtype=torch.int32, device=dev).repeat_interleave(r)
+    nj = pool.ids[:DYN_BASE].clamp_min(0).reshape(-1).contiguous()
+    c1 = DYN_BATCH * (1 + DYN_CFG.seed_k)
+    fr = torch.randint(0, n, (c1,), generator=g, device=dev)
+    f_ids, f_dists = pool.ids[fr].contiguous(), pool.dists[fr].contiguous()
+    f_si = torch.randint(0, r, (c1, p), generator=g, device=dev, dtype=torch.int32)
+    f_sj = torch.randint(0, r, (c1, p), generator=g, device=dev, dtype=torch.int32)
+    valid = torch.rand((n,), generator=g, device=dev) > 0.1
+    live_v = (nbrs >= 0) & valid[nbrs.clamp_min(0).long()]
+    n_live_v = int(live_v.sum())
+    for rung in ("int8", "bf16"):
+        data, sc, of = encode(x, rung)
+        size = data.element_size()
+        dq = 4 * d if sc is not None else 0  # dequant operations per row, per pair
+        sdo = 2 * d * 4 if sc is not None else 0  # the scale / offset bytes
+        rows_m = unique_rows(torch.cat([owners, nj]))
+        measure(
+            f"gather_sqdist/{rung}",
+            "src/repro_torch/kernels/csrc/gather_l2.cu",
+            "src/repro/kernels/gather_l2.py:52",
+            lambda: gather_sqdist(data, owners, nj, sc, of),
+            lambda: ref.gather_sqdist_ref(data, owners, nj, sc, of),
+            lambda got, want: (close(got, want, f"gather_sqdist/{rung}"), ""),
+            rows_m * d * size + sdo + m6 * 12,
+            m6 * (3 * d + dq),
+            None,
+            5,
+        )
+
+        def rng_check_q(got, want):
+            err, ties = check_rng_round(got, want, f_dists, f_si, f_sj)
+            return err, f"; {ties} dst mismatches at near-ties"
+
+        measure(
+            f"rng_round/{rung}",
+            "src/repro_torch/kernels/csrc/rng_round.cu",
+            "src/repro/kernels/rng_round.py:124",
+            lambda: rng_round(data, f_ids, f_dists, f_si, f_sj, sc, of),
+            lambda: ref.rng_round_ref(data, f_ids, f_dists, f_si, f_sj, sc, of),
+            rng_check_q,
+            unique_rows(f_ids) * d * size + sdo + c1 * r * 9 + c1 * p * 20,
+            3 * c1 * p * d + (c1 * r * dq // 2),
+            None,
+            20,
+        )
+
+        def expand_check_q(got, want):
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])):
+                raise AssertionError(f"search_expand/{rung}+valid ids / fresh differ")
+            ok = want[0] >= 0
+            return close(got[1][ok], want[1][ok], f"search_expand/{rung}+valid dists"), ""
+
+        probed = unique_rows(nbrs)
+        measure(
+            f"search_expand/{rung}+valid",
+            "src/repro_torch/kernels/csrc/search_expand.cu",
+            "src/repro/kernels/search_expand.py:170",
+            lambda: search_expand(data, queries, nbrs, table, valid, sc, of),
+            lambda: ref.search_expand_ref(data, queries, nbrs, table, valid, sc, of),
+            expand_check_q,
+            unique_rows(torch.where(live_v, nbrs, -1)) * d * size
+            + sdo
+            + probed
+            + q * d * 4
+            + q * r * 13
+            + min(q * 512, live * 8) * 4,
+            n_live_v * (3 * d + dq // 2),
+            None,
+            20,
+        )
+
+        def pairwise_check_q(got, want):
+            y = ref.dequant_rows(data, sc, of)
+            scale = (gt_q * gt_q).sum(-1)[:, None] + (y * y).sum(-1)[None, :]
+            err = (got - want).abs()
+            if bool((err > PAIRWISE_REL * scale + 1e-6).any()):
+                raise AssertionError(f"pairwise_sqdist/{rung} outside its tolerance")
+            return float(err.max()), ""
+
+        measure(
+            f"pairwise_sqdist/{rung}",
+            "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+            "src/repro/kernels/pairwise_l2.py:80",
+            lambda: pairwise_sqdist(gt_q, data, None, None, sc, of),
+            lambda: ref.pairwise_sqdist_ref(gt_q, data, None, None, sc, of),
+            pairwise_check_q,
+            mq * d * 4 + n * d * size + sdo + mq * n * 4,
+            2 * mq * n * d + n * dq // 2,
+            lambda: torch.cdist(gt_q, ref.dequant_rows(data, sc, of)).square(),
+            5,
+        )
+        del data, sc, of
+        torch.cuda.empty_cache()
     log(f"[kernels] done in {time.perf_counter() - t0:.1f}s")
     return rows
 
@@ -323,30 +484,57 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_parity(dev, cfg) -> None:
+def phase_parity(dev, cfg):
+    """Kernel-vs-plain parity of the fp32 build and of the int8 build with
+    an fp32 rescore."""
     t0 = time.perf_counter()
     g = torch.Generator(dev).manual_seed(SEED + 10)
     x = synthetic.make_preset(g, "sift-like", N_PARITY)
     queries = synthetic.queries_from(g, x, Q_PARITY)
     truth = brute_force_knn(x, queries, 10, device=dev)
-    recalls = {}
-    for name in ("auto", "ref"):
-        with ops.backend(name):
-            pool, build_s = timed(
-                lambda: build_graph(x, cfg, draws=Draws(SEED + 11, dev), device=dev)
+    for rung in ("fp32", "int8"):
+        data = x if rung == "fp32" else encode(x, rung)
+        rescore = None if rung == "fp32" else x
+        recalls = {}
+        for name in ("auto", "ref"):
+            with ops.backend(name):
+                pool, build_s = timed(
+                    lambda: build_graph(data, cfg, draws=Draws(SEED + 11, dev), device=dev)
+                )
+                res, search_s = timed(
+                    lambda: search(
+                        data,
+                        pool.ids,
+                        queries,
+                        k=10,
+                        ef=64,
+                        visited="hashed",
+                        rescore=rescore,
+                        device=dev,
+                    )
+                )
+            recalls[name] = recall_at_k(res.ids, truth)
+            log(
+                f"[parity] n={N_PARITY} {rung} backend={name}: build {build_s:.2f}s, "
+                f"search {search_s:.2f}s, recall@10 {recalls[name]:.4f}"
             )
-            res, search_s = timed(
-                lambda: search(x, pool.ids, queries, k=10, ef=64, visited="hashed", device=dev)
-            )
-        recalls[name] = recall_at_k(res.ids, truth)
-        log(
-            f"[parity] n={N_PARITY} backend={name}: build {build_s:.2f}s, "
-            f"search {search_s:.2f}s, recall@10 {recalls[name]:.4f}"
-        )
-    gap = abs(recalls["auto"] - recalls["ref"])
-    if gap > 0.01:
-        raise AssertionError(f"kernel and plain builds differ by {gap:.4f} recall@10")
-    log(f"[parity] |kernels - plain| = {gap:.4f} <= 0.01; done in {time.perf_counter() - t0:.1f}s")
+        gap = abs(recalls["auto"] - recalls["ref"])
+        if gap > 0.01:
+            raise AssertionError(f"{rung}: kernel and plain builds differ by {gap:.4f} recall@10")
+        log(f"[parity] {rung}: |kernels - plain| = {gap:.4f} <= 0.01")
+    log(f"[parity] done in {time.perf_counter() - t0:.1f}s")
+
+
+def path_counts(label: str, counts: dict, needed, rows) -> None:
+    """Fail unless every kernel of the path launched; give the rows of this
+    path their launch counts."""
+    log(f"[{label}] launches: { {k: v for k, v in sorted(counts.items()) if v} }")
+    missing = [name for name in needed if counts.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {label} path: {missing}")
+    for row in rows:
+        if ROW_PATH[row["name"]] == label:
+            row["launches"] = counts[row["name"]]
 
 
 def phase_main(x, queries, cfg, rows):
@@ -360,12 +548,13 @@ def phase_main(x, queries, cfg, rows):
     log(f"[main] build n={n} d={x.shape[1]} {cfg}: {build_s:.2f}s, mean degree {degree:.2f}")
     truth, gt_s = timed(lambda: brute_force_knn(x, queries, k, device=dev))
     log(f"[main] ground truth for {queries.shape[0]} queries: {gt_s:.2f}s")
+    recalls = {}
     for ef in EF_MAIN:
-        steps = ops.launch_counts()["search_expand"]
+        steps = ops.launch_counts().get("search_expand", 0)
         res, s = timed(
             lambda: search(x, pool.ids, queries, k=k, ef=ef, visited="hashed", device=dev)
         )
-        steps = ops.launch_counts()["search_expand"] - steps
+        steps = ops.launch_counts().get("search_expand", 0) - steps
         ok = (
             res.ids.shape == (queries.shape[0], k)
             and bool(((res.ids >= 0) & (res.ids < n)).all())
@@ -373,7 +562,7 @@ def phase_main(x, queries, cfg, rows):
         )
         if not ok:
             raise AssertionError(f"search at ef={ef} returned empty or out-of-range results")
-        rec = recall_at_k(res.ids, truth)
+        rec = recalls[ef] = recall_at_k(res.ids, truth)
         log(
             f"[main] search ef={ef} hashed: {s:.2f}s, {steps} steps, "
             f"{queries.shape[0] / s:.0f} QPS, "
@@ -383,15 +572,142 @@ def phase_main(x, queries, cfg, rows):
         if rec < RECALL_FLOOR[ef]:
             raise AssertionError(f"recall@10 {rec:.4f} below the floor {RECALL_FLOOR[ef]}")
     counts = ops.launch_counts()
-    log(f"[main] launches: {counts}")
     log(f"[main] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    missing = [name for name, c in counts.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    for row in rows:
-        row["launches"] = counts[row["name"]]
+    path_counts("main", counts, MAIN_KERNELS, rows)
     log(f"[main] done in {time.perf_counter() - t0:.1f}s")
-    return pool, truth
+    return pool, truth, recalls
+
+
+# ---------------------------------------------------------------------------
+# phases 4b and 4c: the dynamic index at int8 and at bf16 traversal, with an
+# fp32 rescore tier
+# ---------------------------------------------------------------------------
+
+
+def _check_results(res, q: int, k: int, what: str) -> None:
+    ok = (
+        tuple(res.ids.shape) == (q, k)
+        and bool((res.ids >= 0).all())
+        and bool(torch.isfinite(res.dists).all())
+    )
+    if not ok:
+        raise AssertionError(f"{what}: empty, non-finite or misshapen results")
+
+
+def phase_dynamic(x, queries, cfg, static_recall: float, rows):
+    t0 = time.perf_counter()
+    dev = x.device
+    n, k, nq = x.shape[0], 10, queries.shape[0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    pool, build_s = timed(
+        lambda: build_graph(x[:DYN_BASE], cfg, draws=Draws(SEED + 20, dev), device=dev)
+    )
+    log(f"[dynamic] base build n={DYN_BASE}: {build_s:.2f}s")
+    idx, s = timed(
+        lambda: DynamicIndex(x[:DYN_BASE], pool, DYN_CFG, draws=Draws(SEED + 21, dev), device=dev)
+    )
+    del pool
+    log(
+        f"[dynamic] construct {DYN_CFG}: {s:.2f}s (the int8 re-base of "
+        f"{DYN_BASE * cfg.r} edges), capacity {idx.capacity}"
+    )
+    ins_s, per_batch = 0.0, []
+    for lo in range(DYN_BASE, n, DYN_BATCH):
+        labs, s = timed(lambda: idx.insert(x[lo : lo + DYN_BATCH]))
+        if labs.tolist() != list(range(lo, lo + DYN_BATCH)):
+            raise AssertionError("insert issued labels out of order")
+        ins_s += s
+        per_batch.append(s)
+    n_ins = n - DYN_BASE
+    log(
+        f"[dynamic] insert {n_ins} in {n_ins // DYN_BATCH} batches: {ins_s:.2f}s, "
+        f"{n_ins / ins_s:.0f} vectors/s (batches {min(per_batch):.2f}-{max(per_batch):.2f}s), "
+        f"rounds_run {idx.rounds_run}, capacity {idx.capacity}"
+    )
+    # labels are the rows of x: the inserts came in order after the base
+    res, s = timed(lambda: idx.search(queries, k=k, ef=64, visited="hashed"))
+    _check_results(res, nq, k, "dynamic search")
+    truth, gt_s = timed(lambda: idx.exact_knn(queries, k))
+    rec = recall_at_k(res.ids, truth)
+    log(
+        f"[dynamic] search ef=64 hashed + fp32 rescore: {s:.2f}s, {nq / s:.0f} QPS, "
+        f"recall@10 {rec:.4f} (static fp32 graph {static_recall:.4f}, floor "
+        f"{DYN_RECALL_FLOOR}); exact_knn {gt_s:.2f}s"
+    )
+    if rec < DYN_RECALL_FLOOR:
+        raise AssertionError(f"dynamic recall@10 {rec:.4f} below {DYN_RECALL_FLOOR}")
+
+    g = torch.Generator(dev).manual_seed(SEED + 22)
+    dels = torch.randperm(n, generator=g, device=dev)[:DYN_DELETE]
+    removed, s = timed(lambda: idx.delete(dels))
+    if removed != DYN_DELETE or idx.size != n:
+        raise AssertionError(f"delete removed {removed} (size {idx.size})")
+    res, search_s = timed(lambda: idx.search(queries, k=k, ef=64, visited="hashed"))
+    _check_results(res, nq, k, "search after delete")
+    if bool(torch.isin(res.ids, dels).any()):
+        raise AssertionError("a deleted label came back from the search")
+    rec_live = recall_at_k(res.ids, idx.exact_knn(queries, k))
+    log(
+        f"[dynamic] delete {DYN_DELETE}: {s:.3f}s; search {search_s:.2f}s, "
+        f"{nq / search_s:.0f} QPS, no deleted label returned, recall@10 against the "
+        f"live ground truth {rec_live:.4f}"
+    )
+
+    qc = queries[:DYN_COMPACT_Q]
+    before = idx.search(qc, k=k, ef=64, visited="dense")
+    _, s = timed(idx.compact)
+    after = idx.search(qc, k=k, ef=64, visited="dense")
+    if not torch.equal(before.ids, after.ids):
+        bad = int((before.ids != after.ids).any(1).sum())
+        raise AssertionError(f"compact() changed the dense search of {bad} queries")
+    log(
+        f"[dynamic] compact: {s:.2f}s, size {idx.size}, capacity {idx.capacity}; dense "
+        f"search of {DYN_COMPACT_Q} queries identical before and after "
+        f"(dists equal: {torch.equal(before.dists, after.dists)})"
+    )
+    counts = ops.launch_counts()
+    log(f"[dynamic] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    path_counts("dynamic", counts, DYN_KERNELS, rows)
+    log(f"[dynamic] done in {time.perf_counter() - t0:.1f}s")
+    return idx
+
+
+def phase_bf16(x, queries, cfg, rows) -> None:
+    """4c: the dynamic index at bf16 traversal on the SIFT1M-shaped corpus,
+    the path of the bf16 rows."""
+    t0 = time.perf_counter()
+    dev = x.device
+    n, nq = x.shape[0], queries.shape[0]
+    ops.reset_launch_counts()
+    pool = build_graph(x[:DYN_BASE], cfg, draws=Draws(SEED + 13, dev), device=dev)
+    idx, s = timed(
+        lambda: DynamicIndex(
+            x[:DYN_BASE],
+            pool,
+            DYN_CFG._replace(precision="bf16"),
+            draws=Draws(SEED + 14, dev),
+            device=dev,
+        )
+    )
+    del pool
+    log(f"[bf16] construct (the bf16 re-base of {DYN_BASE * cfg.r} edges): {s:.2f}s")
+    ins_s = 0.0
+    for lo in range(DYN_BASE, n, DYN_BATCH):
+        ins_s += timed(lambda: idx.insert(x[lo : lo + DYN_BATCH]))[1]
+    res, s = timed(lambda: idx.search(queries, k=10, ef=64, visited="hashed"))
+    counts = ops.launch_counts()
+    _check_results(res, nq, 10, "bf16 search")
+    rec = recall_at_k(res.ids, idx.exact_knn(queries, 10))
+    log(
+        f"[bf16] insert {n - DYN_BASE} in {(n - DYN_BASE) // DYN_BATCH} batches: "
+        f"{ins_s:.2f}s, {(n - DYN_BASE) / ins_s:.0f} vectors/s; search ef=64 hashed + fp32 "
+        f"rescore: {s:.2f}s, {nq / s:.0f} QPS, recall@10 {rec:.4f} (floor {DYN_RECALL_FLOOR})"
+    )
+    if rec < DYN_RECALL_FLOOR:
+        raise AssertionError(f"bf16 path recall@10 {rec:.4f} below {DYN_RECALL_FLOOR}")
+    path_counts("bf16", counts, BF16_KERNELS, rows)
+    log(f"[bf16] done in {time.perf_counter() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -426,7 +742,7 @@ def profiled(label: str, fn, top: int = 8) -> None:
         log(f"[profile]   {_device_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
-def phase_profile(x, queries, pool, truth, cfg) -> None:
+def phase_profile(x, queries, pool, truth, cfg, idx) -> None:
     t0 = time.perf_counter()
     dev = x.device
     draws = Draws(SEED + 3, dev)
@@ -434,6 +750,15 @@ def phase_profile(x, queries, pool, truth, cfg) -> None:
     profiled(
         "search ef=64 hashed, 10,000 queries",
         lambda: search(x, pool.ids, queries, k=10, ef=64, visited="hashed", device=dev),
+    )
+    # the dynamic index after compaction (900,000 live): one more insert
+    # batch of 10,000 (rows near the corpus, new labels) and one search
+    g = torch.Generator(dev).manual_seed(SEED + 23)
+    extra = synthetic.queries_from(g, x, DYN_BATCH)
+    profiled("dynamic insert of 10,000 (int8)", lambda: idx.insert(extra))
+    profiled(
+        "dynamic search ef=64 hashed + rescore, 10,000 queries",
+        lambda: idx.search(queries, k=10, ef=64, visited="hashed"),
     )
     # does the hashed table's default cap (512 slots) cost recall at n = 1M?
     for visited, cap in (("hashed", 8192), ("dense", None)):
@@ -469,8 +794,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_parity(dev, cfg)
     torch.cuda.empty_cache()
-    pool, truth = phase_main(x, queries, cfg, rows)
-    phase_profile(x, queries, pool, truth, cfg)
+    pool, truth, recalls = phase_main(x, queries, cfg, rows)
+    idx = phase_dynamic(x, queries, cfg, recalls[64], rows)
+    torch.cuda.empty_cache()
+    phase_bf16(x, queries, cfg, rows)
+    torch.cuda.empty_cache()
+    phase_profile(x, queries, pool, truth, cfg, idx)
     log(f"[total] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     kind = torch.cuda.get_device_name(0)

@@ -1,6 +1,7 @@
 """GRNND core: graph build, beam search and recall, in PyTorch."""
 
 from repro_torch.core.draws import Draws, RecordedDraws
+from repro_torch.core.dynamic import DynamicConfig, DynamicIndex
 from repro_torch.core.grnnd import (
     GRNNDConfig,
     build_graph,
@@ -18,10 +19,13 @@ from repro_torch.core.pools import (
 )
 from repro_torch.core.recall import brute_force_knn, recall_at_k
 from repro_torch.core.search import SearchResult, default_visited_cap, medoid, search
+from repro_torch.core.vecstore import PRECISIONS, VectorStore, encode, quantize_int8
 
 __all__ = [
     "Draws",
     "RecordedDraws",
+    "DynamicConfig",
+    "DynamicIndex",
     "GRNNDConfig",
     "build_graph",
     "build_graph_with_stats",
@@ -39,4 +43,8 @@ __all__ = [
     "default_visited_cap",
     "brute_force_knn",
     "recall_at_k",
+    "PRECISIONS",
+    "VectorStore",
+    "encode",
+    "quantize_int8",
 ]

@@ -8,7 +8,11 @@ cannot reproduce. So every random number of a build comes from a `Draws`:
   * `slot_pairs(t1, t2, chunk, c, r, p)`: the (C, P) sampled slot indices
     si, sj in [0, R) of one chunk of one propagation round
     (`repro/core/grnnd.py::_sample_slot_pairs`); `chunk` is None when the
-    round runs in one piece.
+    round runs in one piece;
+  * `localized_pairs(round_no, f, r, p)`: the (F, P) slot pairs of the
+    dynamic index's localized round number `round_no` (counted over the
+    index's life) over an F-row frontier. The JAX index draws them from its
+    key, split once per round (`repro/core/dynamic.py::_fold_key`).
 
 `Draws` derives a fresh generator from (seed, tag) for every call, so it is
 stateless: two builds with the same `Draws` see the same numbers. Tests
@@ -47,24 +51,41 @@ class Draws:
             self._randint(r, (c, p), *tag, 1),
         )
 
+    def localized_pairs(self, round_no: int, f: int, r: int, p: int):
+        return (
+            self._randint(r, (f, p), 2, round_no, 0),
+            self._randint(r, (f, p), 2, round_no, 1),
+        )
+
+
+def _int32(a) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, dtype=np.int32))
+
+
+def _recorded(table: dict, key, shape: tuple[int, int]):
+    si, sj = table[key]
+    if si.shape != shape:
+        raise ValueError(f"recorded slot pairs {key} are {tuple(si.shape)}, wanted {shape}")
+    return si, sj
+
 
 class RecordedDraws(Draws):
-    """Draws given up front: `init` (N, S) and `pairs[(t1, t2, chunk)] = (si, sj)`."""
+    """Draws given up front: `init` (N, S), `pairs[(t1, t2, chunk)] = (si, sj)`
+    and `localized[round_no] = (si, sj)`; a draw that was not given raises."""
 
-    def __init__(self, init, pairs: dict):
-        self.init = torch.as_tensor(np.array(init, dtype=np.int32))
-        self.pairs = {
-            key: tuple(torch.as_tensor(np.array(a, dtype=np.int32)) for a in v)
-            for key, v in pairs.items()
-        }
+    def __init__(self, init=None, pairs: dict | None = None, localized: dict | None = None):
+        self.init = None if init is None else _int32(init)
+        self.pairs = {k: tuple(map(_int32, v)) for k, v in (pairs or {}).items()}
+        self.localized = {k: tuple(map(_int32, v)) for k, v in (localized or {}).items()}
 
     def init_ids(self, n: int, s: int) -> torch.Tensor:
-        if self.init.shape != (n, s):
-            raise ValueError(f"recorded init ids are {tuple(self.init.shape)}, wanted {(n, s)}")
+        if self.init is None or self.init.shape != (n, s):
+            got = None if self.init is None else tuple(self.init.shape)
+            raise ValueError(f"recorded init ids are {got}, wanted {(n, s)}")
         return self.init
 
     def slot_pairs(self, t1: int, t2: int, chunk: int | None, c: int, r: int, p: int):
-        si, sj = self.pairs[(t1, t2, chunk)]
-        if si.shape != (c, p):
-            raise ValueError(f"recorded slot pairs are {tuple(si.shape)}, wanted {(c, p)}")
-        return si, sj
+        return _recorded(self.pairs, (t1, t2, chunk), (c, p))
+
+    def localized_pairs(self, round_no: int, f: int, r: int, p: int):
+        return _recorded(self.localized, round_no, (f, p))

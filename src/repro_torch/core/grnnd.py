@@ -13,8 +13,10 @@ As in the JAX package's `core/grnnd.py`:
 
 All pair evaluations of a round see the same pool snapshot; kills are
 OR-combined at the end of the round. Every random number comes from a
-`core.draws.Draws`. The sorted-order ablation (ascending / descending) is
-not ported.
+`core.draws.Draws`. The dataset may be a `core.vecstore.VectorStore`: every
+distance of the build is then taken on storage-precision rows, dequantized
+in the kernels, with fp32 accumulation. The sorted-order ablation
+(ascending / descending) is not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import pools as P
+from repro_torch.core import vecstore as VS
 from repro_torch.core.draws import Draws
 from repro_torch.kernels import ops
 
@@ -52,6 +55,14 @@ def _sample_slot_pairs(draws, t1: int, t2: int, chunk: int | None, c: int, r: in
         si.to(device=dev, dtype=torch.int32).contiguous(),
         sj.to(device=dev, dtype=torch.int32).contiguous(),
     )
+
+
+def _pair_requests_chunk(x, ids_c, dists_c, si, sj):
+    """Request-tuple adapter over the fused round (the dynamic index's
+    localized rounds): (redirect Requests, kill mask (C, R) bool)."""
+    dst, src, dij, killed = ops.rng_propagation_round(x, ids_c, dists_c, si, sj)
+    redirect = P.Requests(dst=dst.reshape(-1), src=src.reshape(-1), dist=dij.reshape(-1))
+    return redirect, killed
 
 
 def _round_pair_matrices(x, pool: P.Pool, draws, cfg: GRNNDConfig, t1: int, t2: int):
@@ -113,7 +124,7 @@ def reverse_edge_round(pool: P.Pool, cfg: GRNNDConfig, rho: float | None = None)
 
 def _build(x, cfg: GRNNDConfig, draws, device, stats: list | None) -> P.Pool:
     dev = _device.resolve(device)
-    x = _device.put(x, torch.float32, dev)
+    x = VS.to_device(x, dev)
     draws = draws if draws is not None else Draws(0, dev)
     pool = P.init_random(draws, x, cfg.s, cfg.r)
     for t1 in range(cfg.t1):
@@ -137,8 +148,9 @@ def _build(x, cfg: GRNNDConfig, draws, device, stats: list | None) -> P.Pool:
 def build_graph(x, cfg: GRNNDConfig, *, draws=None, device="cuda") -> P.Pool:
     """Construct the ANN graph: init -> T1 x (T2 rounds + reverse sampling).
 
-    `x` is an (N, D) fp32 tensor or array; it is moved to `device`, which
-    defaults to "cuda" and raises without a card. `draws` (default:
+    `x` is an (N, D) fp32 tensor or array, or a `VectorStore` (bf16 / int8
+    rows, read through the kernels' fused dequant); it is moved to
+    `device`, which defaults to "cuda" and raises without a card. `draws` (default:
     `Draws(0, device)`) supplies every random number of the build.
     """
     return _build(x, cfg, draws, device, None)

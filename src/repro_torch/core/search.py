@@ -14,7 +14,14 @@ neighbors; a query stops when its whole list is expanded.
     equals the dense one.
   * The JAX `while_loop` becomes a Python loop that asks the card whether
     any query still has a frontier: one host sync per step.
-  * Not ported yet: `valid`, `rescore`, `labels` / `filter` and `ids_map`.
+  * The dataset may be a `core.vecstore.VectorStore` (bf16 / int8 rows,
+    dequantized inside `search_expand`); `rescore=` re-ranks the final ef
+    candidates against fp32 rows, the two-tier layout of the dynamic
+    index.
+  * `valid=` is the dynamic index's tombstone mask: a dead vertex is never
+    expanded, scored or returned.
+  * Not ported yet: `labels` / `filter` (ROADMAP queue A.8) and `ids_map`
+    (the layout pass, A.9).
 """
 
 from __future__ import annotations
@@ -37,10 +44,20 @@ class SearchResult(NamedTuple):
     n_expanded: torch.Tensor  # (Q,) int32, distance computations proxy
 
 
-def medoid(x: torch.Tensor) -> torch.Tensor:
-    """Entry point: the vertex nearest to the dataset centroid (int32 scalar)."""
-    c = VS.dequant(x).mean(0, keepdim=True)
-    return ops.pairwise_sqdist(c, x)[0].argmin().to(torch.int32)
+def medoid(x, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Entry point: the vertex nearest to the dataset centroid (int32 scalar).
+
+    With a `valid` mask the centroid and the argmin are taken over live rows
+    only. A store's centroid is that of its dequantized rows, and the
+    distances are read through the kernel's fused dequant.
+    """
+    if valid is None:
+        c = VS.dequant(x).mean(0, keepdim=True)
+        return ops.pairwise_sqdist(c, x)[0].argmin().to(torch.int32)
+    v = valid.float()
+    c = ((VS.dequant(x) * v[:, None]).sum(0) / v.sum().clamp_min(1.0))[None, :]
+    d = torch.where(valid, ops.pairwise_sqdist(c, x)[0], torch.inf)
+    return d.argmin().to(torch.int32)
 
 
 def default_visited_cap(ef: int) -> int:
@@ -101,20 +118,23 @@ def search(
 ) -> SearchResult:
     """Search the graph for the k nearest vertices to each query row.
 
-    x (N, D) fp32, graph_ids (N, R) int32 and queries (Q, D) are moved to
-    `device` (default "cuda"; raises without a card). `entry` defaults to
-    the medoid. `visited` is "dense" (exact (Q, N) mask) or "hashed"
-    (`visited_cap` slots per query, default `default_visited_cap(ef)`).
+    x (the (N, D) traversal tier: a tensor or a `VectorStore`), graph_ids
+    (N, R) int32 and queries (Q, D) are moved to `device` (default "cuda";
+    raises without a card). `entry` defaults to the medoid. `visited` is
+    "dense" (exact (Q, N) mask) or "hashed" (`visited_cap` slots per query,
+    default `default_visited_cap(ef)`). `valid` is an (N,) bool mask of live
+    vertices. `rescore` is an (N, D) fp32 tier (or a store) whose rows
+    re-rank the final ef candidates with exact distances.
     """
-    for name, value in (
-        ("valid", valid),
-        ("rescore", rescore),
-        ("labels", labels),
-        ("filter", filter),
-        ("ids_map", ids_map),
+    for name, value, item in (
+        ("labels", labels, "A.8"),
+        ("filter", filter, "A.8"),
+        ("ids_map", ids_map, "A.9"),
     ):
         if value is not None:
-            raise NotImplementedError(f"search({name}=...) is not ported yet")
+            raise NotImplementedError(
+                f"search({name}=...) is not ported yet (ROADMAP queue {item})"
+            )
     if ef < k:
         raise ValueError(f"ef={ef} must be at least k={k}")
     if visited not in ("dense", "hashed"):
@@ -123,15 +143,23 @@ def search(
         raise ValueError(f"visited_cap must be positive, got {visited_cap}")
 
     dev = _device.resolve(device)
-    x = _device.put(x, torch.float32, dev)
+    x = VS.to_device(x, dev)
     graph_ids = _device.put(graph_ids, torch.int32, dev)
     queries = _device.put(queries, torch.float32, dev)
-    entry = medoid(x) if entry is None else _device.put(entry, torch.int32, dev)
-    n = x.shape[0]
+    if valid is not None:
+        valid = _device.put(valid, torch.bool, dev)
+    if rescore is not None:
+        rescore = VS.to_device(rescore, dev)
+    entry = medoid(x, valid) if entry is None else _device.put(entry, torch.int32, dev)
+    n = VS.nrows(x)
     q = queries.shape[0]
     qrows = torch.arange(q, device=dev)
 
     d_entry = ops.rowwise_sqdist(queries, VS.take(x, entry).expand(q, -1).contiguous())
+    if valid is not None:
+        # a dead entry contributes nothing; every later insertion into the
+        # beam is validity-filtered inside search_expand
+        d_entry = torch.where(valid[entry.long()], d_entry, torch.inf)
     cand_ids = torch.full((q, ef), -1, dtype=torch.int32, device=dev)
     cand_ids[:, 0] = entry
     cand_dists = torch.full((q, ef), torch.inf, dtype=torch.float32, device=dev)
@@ -162,7 +190,7 @@ def search(
 
         nbrs = graph_ids[sel_id.clamp_min(0).long()]  # (Q, R)
         nbrs = torch.where(active[:, None] & (nbrs >= 0), nbrs, -1)
-        nbrs, dq, fresh = ops.search_expand(x, queries, nbrs, lookup)
+        nbrs, dq, fresh = ops.search_expand(x, queries, nbrs, lookup, valid)
         if visited == "dense":
             idx = nbrs.clamp_min(0).long()
             fresh = fresh & ~vstate.gather(1, idx).bool()
@@ -184,5 +212,14 @@ def search(
         exp_src = torch.where(expanded & (cand_ids >= 0), cand_ids, -2)
         expanded = (new_ids[:, :, None] == exp_src[:, None, :]).any(-1) | (new_ids < 0)
         cand_ids, cand_dists = new_ids, new_d
+
+    if rescore is not None:
+        # re-rank the final ef candidates with exact distances against the
+        # rescore tier: one (Q, ef, D) gather, pads masked by id, then the
+        # merge primitive (ids are already unique, so a pure re-sort)
+        rv = VS.take(rescore, cand_ids.clamp_min(0))  # (Q, ef, D)
+        diff = queries[:, None, :] - rv
+        d_exact = torch.where(cand_ids >= 0, (diff * diff).sum(-1), torch.inf)
+        cand_ids, cand_dists = ops.topr_merge(cand_ids, d_exact, ef)
 
     return SearchResult(cand_ids[:, :k], cand_dists[:, :k], n_exp)

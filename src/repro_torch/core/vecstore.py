@@ -1,34 +1,200 @@
-"""Dataset vectors: the fp32 rung of the precision ladder.
+"""VectorStore: the precision ladder for dataset vectors.
 
-The JAX package's `core/vecstore.py` holds vectors at fp32, bf16 or int8;
-this port has the fp32 rung only, over plain (N, D) tensors. These helpers
-are the one place the build and search layers read rows, so the other rungs
-can land here later.
+A port of the JAX package's `core/vecstore.py` up to `precision_of`. Every
+distance of the build, the search and the dynamic index reads rows of the
+(N, D) dataset, and on the card those reads are what bounds the kernels, so
+the storage precision caps build size and query rate. A `VectorStore` holds
+the vectors at one of three rungs:
+
+  * ``fp32`` — the exact baseline (a plain tensor wrapped unchanged);
+  * ``bf16`` — 2 bytes a dimension; the kernels widen to fp32 on load;
+  * ``int8`` — 1 byte a dimension, per-dimension affine quantization with
+    (scale, offset) taken from the corpus at encode time:
+
+        q = clip(round((x - offset) / scale), -127, 127)     stored int8
+        x̂ = q · scale + offset                               dequant
+
+    The dequant is fused into the kernels (`kernels/ref.py::dequant_rows`
+    is the one formula, computed bitwise alike by kernel and plain
+    version); the (N, D) fp32 matrix never exists on the hot path.
+
+Exact results come back through the fp32 rescore of `core/search.py`
+(`rescore=`): the final ef candidates are re-ranked against fp32 rows.
+
+Every helper below takes a store or a plain (N, D) tensor, so the build and
+search layers accept either. The host-pinned rescore tier (`HostTier`,
+`PLACEMENTS`) is not ported yet (ROADMAP queue A.7).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from repro_torch import device as _device
+from repro_torch.kernels.ops import parts  # noqa: F401  (one duck-typer for both layers)
+from repro_torch.kernels.ref import dequant_rows
 
-def parts(x: torch.Tensor):
-    """(data, scale, offset) of the dataset operand: (x, None, None) at fp32."""
-    return x, None, None
+PRECISIONS = ("fp32", "bf16", "int8")
+
+# int8 quantization range: symmetric ±127 around the per-dimension midpoint
+_QLEVELS = 254.0
+
+_STORED = (torch.float32, torch.bfloat16, torch.int8)
 
 
-def nrows(x: torch.Tensor) -> int:
+class VectorStore(NamedTuple):
+    """Dataset vectors at one rung of the precision ladder.
+
+    data   (N, D) float32 | bfloat16 | int8
+    scale  (D,)   float32 — per-dimension dequant scale; None on float rungs
+    offset (D,)   float32 — per-dimension dequant offset; None on float rungs
+    """
+
+    data: torch.Tensor
+    scale: torch.Tensor | None = None
+    offset: torch.Tensor | None = None
+
+    @property
+    def precision(self) -> str:
+        if self.data.dtype == torch.int8:
+            return "int8"
+        if self.data.dtype == torch.bfloat16:
+            return "bf16"
+        return "fp32"
+
+    @property
+    def n(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        """Logical (N, D), so store-aware callers keep tensor idiom."""
+        return tuple(self.data.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def bytes_per_vector(self, include_overhead: bool = False) -> float:
+        """Storage bytes per row; the overhead is the shared (D,) scale and
+        offset amortized over N."""
+        per_row = self.dim * self.data.element_size()
+        if include_overhead and self.scale is not None:
+            per_row += 8.0 * self.dim / max(self.n, 1)
+        return float(per_row)
+
+    def dequant(self) -> torch.Tensor:
+        """Full (N, D) fp32 view (entry-point selection, one-shot uses)."""
+        return dequant_rows(self.data, self.scale, self.offset)
+
+    def take(self, idx: torch.Tensor) -> torch.Tensor:
+        """Gather rows by index (any index shape) -> fp32, dequantized."""
+        return dequant_rows(self.data[idx.long()], self.scale, self.offset)
+
+    def quantize_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Encode fp32 rows with this store's frozen parameters; values
+        outside the encode-time range clip to its edge."""
+        if self.scale is None:
+            return x.to(self.data.dtype)
+        q = torch.round((x.float() - self.offset) / self.scale)
+        return q.clamp(-127.0, 127.0).to(torch.int8)
+
+    def requant(self, x: torch.Tensor) -> torch.Tensor:
+        """Round-trip fp32 rows through this store: the values the kernels
+        would see if the rows were stored."""
+        return dequant_rows(self.quantize_rows(x), self.scale, self.offset)
+
+    def with_rows(self, idx: torch.Tensor, x: torch.Tensor) -> VectorStore:
+        """Set rows `idx` to the encoded fp32 rows `x`. Unlike the JAX
+        package's functional update this writes `data` in place (a 2^20-row
+        store is not copied per insert) and returns the store."""
+        self.data[idx.long()] = self.quantize_rows(x)
+        return self
+
+
+def quantize_int8(x: torch.Tensor) -> VectorStore:
+    """Per-dimension affine int8 quantization of an (N, D) fp32 corpus.
+
+    scale/offset come from the per-dimension [min, max], so the corpus is in
+    range and |x - x̂| <= scale / 2. A constant dimension gets scale 1 (q = 0,
+    x̂ = offset, no error). An empty (0, D) corpus gets scale 1 and offset 0.
+    """
+    x = x.float()
+    n, d = x.shape
+    if n == 0:
+        return VectorStore(
+            torch.zeros((0, d), dtype=torch.int8, device=x.device),
+            torch.ones((d,), dtype=torch.float32, device=x.device),
+            torch.zeros((d,), dtype=torch.float32, device=x.device),
+        )
+    lo = x.min(0).values
+    hi = x.max(0).values
+    offset = lo + (hi - lo) * 0.5
+    scale = torch.where(hi > lo, (hi - lo) / _QLEVELS, 1.0)
+    q = torch.round((x - offset) / scale).clamp(-127.0, 127.0)
+    return VectorStore(q.to(torch.int8), scale, offset)
+
+
+def encode(x: torch.Tensor, precision: str) -> VectorStore:
+    """Encode an (N, D) corpus at the given precision rung."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if precision == "int8":
+        return quantize_int8(x)
+    if precision == "bf16":
+        return VectorStore(x.to(torch.bfloat16))
+    return VectorStore(x.float())
+
+
+# -- store-or-tensor helpers (the build and search layers accept either) ----
+
+
+def as_store(x) -> VectorStore:
+    return x if isinstance(x, VectorStore) else VectorStore(x)
+
+
+def nrows(x) -> int:
     return x.shape[0]
 
 
-def dim(x: torch.Tensor) -> int:
+def dim(x) -> int:
     return x.shape[1]
 
 
-def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gather rows (any index shape) -> fp32."""
+def take(x, idx: torch.Tensor) -> torch.Tensor:
+    """Gather rows -> fp32 (dequantized for stores, widened for tensors)."""
+    if isinstance(x, VectorStore):
+        return x.take(idx)
     return x[idx.long()].float()
 
 
-def dequant(x: torch.Tensor) -> torch.Tensor:
-    """(N, D) fp32 view."""
+def dequant(x) -> torch.Tensor:
+    """(N, D) fp32 view of a store or tensor."""
+    if isinstance(x, VectorStore):
+        return x.dequant()
     return x.float()
+
+
+def precision_of(x) -> str:
+    return as_store(x).precision
+
+
+def to_device(x, dev: torch.device):
+    """The dataset operand on `dev`, contiguous: a store keeps its rung (and
+    fp32 scale/offset); a bf16 or int8 tensor keeps its dtype; anything
+    else (arrays, other dtypes) becomes an fp32 tensor."""
+    if isinstance(x, VectorStore):
+        return VectorStore(
+            x.data.to(dev).contiguous(),
+            None if x.scale is None else _device.put(x.scale, torch.float32, dev),
+            None if x.offset is None else _device.put(x.offset, torch.float32, dev),
+        )
+    if isinstance(x, torch.Tensor) and x.dtype in _STORED:
+        return x.to(dev).contiguous()
+    return _device.put(x, torch.float32, dev)

@@ -14,7 +14,9 @@ a finished build is reused. `nvcc` is taken from `$CUDA_HOME/bin` (default
 `/usr/local/cuda`) or the PATH.
 
 `launch` is the one place a kernel is started: it raises on a non-zero
-error code and counts the launch in `LAUNCHES`.
+error code and counts the launch in `LAUNCHES` under the variant's name:
+the kernel's name, then `/bf16` or `/int8` for a quantized storage rung
+and `+valid` for the tombstone mask (`search_expand/int8+valid`).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("pairwise_l2", "rng_round", "search_expand", "topr_merge")
+SOURCES = ("gather_l2", "pairwise_l2", "rng_round", "search_expand", "topr_merge")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -44,15 +46,14 @@ NVCC_FLAGS = (
     "-v",
 )
 
-# kernel name -> launches since the last reset (module-wide, like the
-# backend selection in ops.py)
-LAUNCHES = {
-    "rng_round": 0,
-    "topr_merge": 0,
-    "search_expand": 0,
-    "rowwise_sqdist": 0,
-    "pairwise_sqdist": 0,
-}
+# kernel variant name -> launches since the last reset (module-wide, like
+# the backend selection in ops.py); a variant enters at its first launch
+LAUNCHES: dict[str, int] = {}
+
+# element type codes of the C launch functions' `dtype` argument
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+STORED = tuple(DTYPE_CODES)  # the stored element types every row kernel takes
+_RUNG = {torch.float32: "", torch.bfloat16: "bf16", torch.int8: "int8"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, object] = {}
@@ -142,23 +143,50 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def variant(kernel: str, *dtypes: torch.dtype, valid: bool = False) -> str:
+    """The launch-count name of a kernel variant: `kernel`, then the
+    quantized rungs among `dtypes` (`/int8`, `/bf16+int8`), then `+valid`."""
+    rungs = sorted({_RUNG[t] for t in dtypes} - {""})
+    name = kernel + ("/" + "+".join(rungs) if rungs else "")
+    return name + ("+valid" if valid else "")
+
+
 def launch(kernel: str, fn, *args) -> None:
     """Call a C launch function; raise on a CUDA error, else count it."""
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: cudaError_t {err}")
-    LAUNCHES[kernel] += 1
+    LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
 
 
-def check(kernel: str, device: torch.device, **tensors: tuple[torch.Tensor, torch.dtype]):
-    """Raise unless every tensor is a contiguous tensor of the given dtype on
-    `device` (a CUDA device)."""
+def check(kernel: str, device: torch.device, **tensors):
+    """Raise unless every tensor is a contiguous tensor on `device` (a CUDA
+    device) whose dtype is the given one (or one of a given tuple). A
+    (None, ...) entry is an absent optional operand and passes."""
     if device.type != "cuda":
         raise ValueError(f"{kernel}: the CUDA kernel needs CUDA tensors, got {device}")
     for name, (t, dtype) in tensors.items():
+        if t is None:
+            continue
         if t.device != device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
-        if t.dtype != dtype:
+        if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
             raise TypeError(f"{kernel}: {name} has dtype {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def check_dequant(kernel: str, data: torch.Tensor, scale, offset) -> None:
+    """scale/offset are both given (fp32, (D,)) or both None; a quantized
+    rung without them only widens, as the plain version does."""
+    if (scale is None) != (offset is None):
+        raise ValueError(f"{kernel}: give both scale and offset, or neither")
+    if scale is not None:
+        check(kernel, data.device, scale=(scale, torch.float32), offset=(offset, torch.float32))
+        if scale.shape != (data.shape[1],) or offset.shape != (data.shape[1],):
+            raise ValueError(f"{kernel}: scale/offset must be ({data.shape[1]},)")
+
+
+def ptr(t) -> int | None:
+    """Device pointer of an optional operand (None -> a null pointer)."""
+    return None if t is None else t.data_ptr()

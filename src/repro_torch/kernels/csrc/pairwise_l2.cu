@@ -1,5 +1,6 @@
 // Squared L2 distances: all pairs (pairwise_sqdist) and corresponding rows
-// (rowwise_sqdist), fp32 throughout.
+// (rowwise_sqdist). pairwise takes either side stored at fp32, bf16 or int8
+// with its own per-dimension scale/offset; rowwise is fp32.
 //
 // pairwise_sqdist replaces src/repro/kernels/pairwise_l2.py::pairwise_sqdist_pallas
 // (body _pairwise_kernel); rowwise_sqdist replaces
@@ -13,9 +14,12 @@
 // shared memory; every thread reads a float4 of each and does 16 FMAs. The
 // row norms |x|^2 and |y|^2 are summed from the same staged tiles, so no
 // second pass over the inputs is needed, and the epilogue writes
-// max(|x|^2 + |y|^2 - 2 x.y, 0). Bound: 2*M*N*D flops at the fp32 rate
-// (67 TFLOP/s) for the ground-truth shapes; the M*N*4 output bytes come
-// second.
+// max(|x|^2 + |y|^2 - 2 x.y, 0). A quantized side is dequantized while its
+// tile is staged (bitwise the plain version's rows), so the norms come from
+// the dequantized values; the kernel is templated on both sides' element
+// types and on whether any side carries a scale / offset, so the fp32 path
+// carries no dequant code. Bound: 2*M*N*D flops at the fp32 rate (67 TFLOP/s) for the
+// ground-truth shapes; the M*N*4 output bytes come second.
 //
 // rowwise: one warp per row pair, float4 loads, a shuffle reduction. Bound:
 // the 2*M*D*4 input bytes.
@@ -23,8 +27,11 @@
 
 constexpr int BM = 64, BN = 64, BK = 16, PAD = 4;
 
+template <typename TX, typename TY, bool Q>
 __global__ void __launch_bounds__(256)
-pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y, int m, int n, int d,
+pairwise_kernel(const TX* __restrict__ x, const float* __restrict__ xsc,
+                const float* __restrict__ xof, const TY* __restrict__ y,
+                const float* __restrict__ ysc, const float* __restrict__ yof, int m, int n, int d,
                 float* __restrict__ out) {
   __shared__ __align__(16) float xs[BK][BM + PAD];
   __shared__ __align__(16) float ys[BK][BN + PAD];
@@ -37,8 +44,17 @@ pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y, int m,
     for (int e = tid; e < BM * BK; e += 256) {
       const int row = e / BK, kk = e % BK, k = k0 + kk;
       const int64_t gm = m0 + row, gn = n0 + row;
-      xs[kk][row] = (gm < m && k < d) ? x[gm * d + k] : 0.f;
-      ys[kk][row] = (gn < n && k < d) ? y[gn * d + k] : 0.f;
+      float xv = 0.f, yv = 0.f;
+      if (gm < m && k < d) {
+        xv = widen(x[gm * d + k]);
+        if (Q && xsc != nullptr) xv = affine(xv, xsc[k], xof[k]);
+      }
+      if (gn < n && k < d) {
+        yv = widen(y[gn * d + k]);
+        if (Q && ysc != nullptr) yv = affine(yv, ysc[k], yof[k]);
+      }
+      xs[kk][row] = xv;
+      ys[kk][row] = yv;
     }
     __syncthreads();
 #pragma unroll
@@ -79,12 +95,52 @@ __global__ void rowwise_kernel(const float* __restrict__ x, const float* __restr
   if (lane == 0) out[row] = dd;
 }
 
-extern "C" int pairwise_sqdist_launch(const float* x, const float* y, int m, int n, int d,
-                                      float* out, cudaStream_t stream) {
-  if (m == 0 || n == 0) return cudaSuccess;
+template <typename TX, typename TY>
+static cudaError_t pairwise(const void* x, const float* xsc, const float* xof, const void* y,
+                            const float* ysc, const float* yof, int m, int n, int d, float* out,
+                            cudaStream_t stream) {
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  pairwise_kernel<<<grid, 256, 0, stream>>>(x, y, m, n, d, out);
+  const TX* xt = static_cast<const TX*>(x);
+  const TY* yt = static_cast<const TY*>(y);
+  if (xsc != nullptr || ysc != nullptr)
+    pairwise_kernel<TX, TY, true><<<grid, 256, 0, stream>>>(xt, xsc, xof, yt, ysc, yof, m, n, d,
+                                                            out);
+  else
+    pairwise_kernel<TX, TY, false><<<grid, 256, 0, stream>>>(xt, xsc, xof, yt, ysc, yof, m, n, d,
+                                                             out);
   return cudaGetLastError();
+}
+
+template <typename TX>
+static cudaError_t pairwise_y(const void* x, const float* xsc, const float* xof, const void* y,
+                              int ydt, const float* ysc, const float* yof, int m, int n, int d,
+                              float* out, cudaStream_t stream) {
+  switch (ydt) {
+    case REPRO_F32:
+      return pairwise<TX, float>(x, xsc, xof, y, ysc, yof, m, n, d, out, stream);
+    case REPRO_BF16:
+      return pairwise<TX, __nv_bfloat16>(x, xsc, xof, y, ysc, yof, m, n, d, out, stream);
+    case REPRO_I8:
+      return pairwise<TX, int8_t>(x, xsc, xof, y, ysc, yof, m, n, d, out, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int pairwise_sqdist_launch(const void* x, int xdt, const float* xsc, const float* xof,
+                                      const void* y, int ydt, const float* ysc, const float* yof,
+                                      int m, int n, int d, float* out, cudaStream_t stream) {
+  if (m == 0 || n == 0) return cudaSuccess;
+  switch (xdt) {
+    case REPRO_F32:
+      return pairwise_y<float>(x, xsc, xof, y, ydt, ysc, yof, m, n, d, out, stream);
+    case REPRO_BF16:
+      return pairwise_y<__nv_bfloat16>(x, xsc, xof, y, ydt, ysc, yof, m, n, d, out, stream);
+    case REPRO_I8:
+      return pairwise_y<int8_t>(x, xsc, xof, y, ydt, ysc, yof, m, n, d, out, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int rowwise_sqdist_launch(const float* x, const float* y, long long m, int d,

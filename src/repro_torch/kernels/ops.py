@@ -1,4 +1,9 @@
-"""Dispatch surface for the five kernels of the build-and-search path.
+"""Dispatch surface for the six kernels of the build, search and
+dynamic-index paths.
+
+Every distance entry point takes the dataset as a plain (N, D) tensor or a
+`core.vecstore.VectorStore` (bf16 / int8 storage with a fused dequant);
+`parts` duck-types the store, so this module imports nothing from core.
 
 Backends:
   * "auto" — by the tensor's device: a CUDA tensor runs the hand-written
@@ -22,6 +27,7 @@ import os
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.gather_l2 import gather_sqdist as _gather
 from repro_torch.kernels.pairwise_l2 import pairwise_sqdist as _pairwise
 from repro_torch.kernels.pairwise_l2 import rowwise_sqdist as _rowwise
 from repro_torch.kernels.rng_round import rng_round as _rng_round
@@ -29,6 +35,15 @@ from repro_torch.kernels.search_expand import search_expand as _search_expand
 from repro_torch.kernels.topr_merge import topr_merge as _topr_merge
 
 _VALID = ("auto", "ref")
+
+
+def parts(x):
+    """(data, scale, offset) of a dataset operand: a store's fields, or
+    (x, None, None) for a tensor. Duck-typed on the store's field names (a
+    NamedTuple with `data` and `scale`), as the JAX package does."""
+    if isinstance(x, tuple) and hasattr(x, "data") and hasattr(x, "scale"):
+        return x.data, x.scale, x.offset
+    return x, None, None
 
 
 def _normalize(name: str) -> str:
@@ -78,11 +93,13 @@ def reset_launch_counts() -> None:
         _build.LAUNCHES[name] = 0
 
 
-def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """(M, D) x (N, D) -> (M, N) squared L2, fp32."""
+def pairwise_sqdist(x, y) -> torch.Tensor:
+    """(M, D) x (N, D) -> (M, N) squared L2, fp32; either side may be a store."""
+    xd, xs, xo = parts(x)
+    yd, ys, yo = parts(y)
     if _BACKEND == "ref":
-        return ref.pairwise_sqdist_ref(x, y)
-    return _pairwise(x, y)
+        return ref.pairwise_sqdist_ref(xd, yd, xs, xo, ys, yo)
+    return _pairwise(xd, yd, xs, xo, ys, yo)
 
 
 def rowwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -99,15 +116,30 @@ def topr_merge(ids: torch.Tensor, dists: torch.Tensor, r: int):
     return _topr_merge(ids, dists, r)
 
 
-def search_expand(x, queries, nbrs, table):
-    """One beam-expansion step: (ids, dists, fresh)."""
+def search_expand(x, queries, nbrs, table, valid=None, vwords=None, fwords=None):
+    """One beam-expansion step: (ids, dists, fresh). `x` may be a store;
+    `valid` is the optional (N,) tombstone mask. The filter operands are
+    not ported (ROADMAP queue A.8)."""
+    if vwords is not None or fwords is not None:
+        raise NotImplementedError("search_expand(vwords=, fwords=): filtered search (A.8)")
+    xd, xs, xo = parts(x)
     if _BACKEND == "ref":
-        return ref.search_expand_ref(x, queries, nbrs, table)
-    return _search_expand(x, queries, nbrs, table)
+        return ref.search_expand_ref(xd, queries, nbrs, table, valid, xs, xo)
+    return _search_expand(xd, queries, nbrs, table, valid, xs, xo)
 
 
 def rng_propagation_round(x, ids, dists, si, sj):
-    """One disordered propagation round: (dst, src, dij, kill)."""
+    """One disordered propagation round: (dst, src, dij, kill); `x` may be a store."""
+    xd, xs, xo = parts(x)
     if _BACKEND == "ref":
-        return ref.rng_round_ref(x, ids, dists, si, sj)
-    return _rng_round(x, ids, dists, si, sj)
+        return ref.rng_round_ref(xd, ids, dists, si, sj, xs, xo)
+    return _rng_round(xd, ids, dists, si, sj, xs, xo)
+
+
+def gather_sqdist(x, ni, nj) -> torch.Tensor:
+    """(M,) d(x[ni[m]], x[nj[m]]) without materialized (M, D) gathers;
+    indices clamped to [0, N-1]; `x` may be a store."""
+    xd, xs, xo = parts(x)
+    if _BACKEND == "ref":
+        return ref.gather_sqdist_ref(xd, ni, nj, xs, xo)
+    return _gather(xd, ni, nj, xs, xo)

@@ -9,8 +9,11 @@ the plain versions in `ref.py` for CPU tensors.
 pairwise: bound by its 2*M*N*D fp32 FMAs at the ground-truth shapes
 (1024 queries x 1M rows x 128); the kernel is a 64x64-tile shared-memory
 FMA GEMM with the norms summed from the staged tiles (no TF32, no library
-GEMM). rowwise: bound by its 2*M*D*4 input bytes; one warp per row pair
-with float4 loads.
+GEMM). Either side may be stored at bf16 or int8 with its own (D,)
+scale/offset: the tile is dequantized while it is staged, so the norms come
+from the dequantized values (the medoid of the dynamic index reads its
+int8 tier this way). rowwise: bound by its 2*M*D*4 input bytes; one warp
+per row pair with float4 loads.
 """
 
 from __future__ import annotations
@@ -22,26 +25,43 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_PAIRWISE_ARGS = (_P, _P, _I, _I, _I, _P, _P)
+_PAIRWISE_ARGS = (_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P)
 _ROWWISE_ARGS = (_P, _P, _L, _I, _P, _P)
 _MAX_M = 65535 * 64  # grid.y limit of the 64-row tiles
 
 
-def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """(M, D) x (N, D) fp32 -> (M, N) fp32 max(|x|^2 + |y|^2 - 2 x.y, 0)."""
+def pairwise_sqdist(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    x_scale=None,
+    x_offset=None,
+    y_scale=None,
+    y_offset=None,
+) -> torch.Tensor:
+    """(M, D) x (N, D) -> (M, N) fp32 max(|x|^2 + |y|^2 - 2 x.y, 0).
+
+    Each side is fp32, bf16 or int8, with its optional (D,) fp32 dequant."""
     if x.device.type == "cpu":
-        return ref.pairwise_sqdist_ref(x, y)
-    _build.check("pairwise_sqdist", x.device, x=(x, torch.float32), y=(y, torch.float32))
+        return ref.pairwise_sqdist_ref(x, y, x_scale, x_offset, y_scale, y_offset)
+    _build.check("pairwise_sqdist", x.device, x=(x, _build.STORED), y=(y, _build.STORED))
+    _build.check_dequant("pairwise_sqdist", x, x_scale, x_offset)
+    _build.check_dequant("pairwise_sqdist", y, y_scale, y_offset)
     (m, d), (n, d2) = x.shape, y.shape
     if d != d2 or m > _MAX_M:
         raise ValueError(f"pairwise_sqdist: shapes {tuple(x.shape)} x {tuple(y.shape)}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _build.function("pairwise_l2", "pairwise_sqdist_launch", _PAIRWISE_ARGS)
     _build.launch(
-        "pairwise_sqdist",
+        _build.variant("pairwise_sqdist", x.dtype, y.dtype),
         fn,
         x.data_ptr(),
+        _build.DTYPE_CODES[x.dtype],
+        _build.ptr(x_scale),
+        _build.ptr(x_offset),
         y.data_ptr(),
+        _build.DTYPE_CODES[y.dtype],
+        _build.ptr(y_scale),
+        _build.ptr(y_offset),
         m,
         n,
         d,

@@ -1,20 +1,30 @@
-"""Plain PyTorch versions of the five kernels on the build-and-search path.
+"""Plain PyTorch versions of the six kernels of the build, search and
+dynamic-index paths.
 
 Each function computes what its counterpart in the JAX package's
-`repro/kernels/ref.py` computes (fp32 storage, unfiltered, no tombstone
-mask). They are the port's own oracle: the CPU tests run them, and on the
-card `chip_smoke.py` holds each hand-written CUDA kernel against them on
-the same inputs. On the main path they run only for CPU tensors or under
-`ops.backend("ref")`.
+`repro/kernels/ref.py` computes, on every rung of the precision ladder
+(fp32, bf16 and int8 storage, with the per-dimension `scale`/`offset`
+dequant) and with the tombstone mask of `search_expand_ref`; the filter
+operands are not ported. They are the port's own oracle: the CPU tests run
+them, and on the card `chip_smoke.py` holds each hand-written CUDA kernel
+against them on the same inputs. On the main path they run only for CPU
+tensors or under `ops.backend("ref")`.
+
+`dequant_rows` is the one dequant formula: the fp32 widen, then a multiply
+and an add as two separate operations (never a fused multiply-add). The
+CUDA kernels compute it as `__fadd_rn(__fmul_rn(q, scale), offset)`, so
+kernel and plain version see bitwise-equal fp32 rows and differ only in
+the order they sum a distance.
 
 `pairwise_sqdist_ref` uses `torch.matmul`; on a card that is full fp32
 only while `torch.backends.cuda.matmul.allow_tf32` is False (PyTorch's
 default), which `chip_smoke.py` sets explicitly.
 
-`rng_round_ref` and `topr_merge_ref` work through their rows in blocks:
-the results are row-independent, so blocking changes no value, and it
-keeps the gathered (rows, P, D) and (rows, W, W) intermediates a few
-hundred MB at N = 1M.
+`rng_round_ref`, `gather_sqdist_ref` and `topr_merge_ref` work through
+their rows in blocks: the results are row-independent, so blocking changes
+no value, and it keeps the gathered (rows, P, D), (rows, D) and (rows, W, W)
+intermediates a few hundred MB at N = 1M (a whole (M, D) gather for the
+dynamic index's re-base would be 22 GB).
 """
 
 from __future__ import annotations
@@ -23,6 +33,8 @@ import torch
 
 __all__ = [
     "HASH_PROBES",
+    "dequant_rows",
+    "gather_sqdist_ref",
     "pairwise_sqdist_ref",
     "rowwise_sqdist_ref",
     "rng_round_ref",
@@ -45,10 +57,30 @@ def _row_blocks(rows: int, per_row: int):
         yield lo, min(rows, lo + step)
 
 
-def pairwise_sqdist_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """(M, D) x (N, D) -> (M, N) squared L2, as max(|x|^2 + |y|^2 - 2 x.y, 0)."""
-    x = x.float()
-    y = y.float()
+def dequant_rows(data: torch.Tensor, scale=None, offset=None) -> torch.Tensor:
+    """Stored rows -> fp32: the widen, then `* scale` and `+ offset` as two
+    separate operations. scale/offset None = a float rung (fp32 or bf16
+    storage), where the widen alone is exact."""
+    x = data.float()
+    if scale is not None:
+        x = x * scale
+        x = x + offset
+    return x
+
+
+def pairwise_sqdist_ref(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    x_scale=None,
+    x_offset=None,
+    y_scale=None,
+    y_offset=None,
+) -> torch.Tensor:
+    """(M, D) x (N, D) -> (M, N) squared L2, as max(|x|^2 + |y|^2 - 2 x.y, 0).
+
+    Either side may be stored rows with its own (D,) dequant."""
+    x = dequant_rows(x, x_scale, x_offset)
+    y = dequant_rows(y, y_scale, y_offset)
     xx = (x * x).sum(-1, keepdim=True)
     yy = (y * y).sum(-1)[None, :]
     return torch.clamp_min(xx + yy - 2.0 * (x @ y.T), 0.0)
@@ -60,14 +92,31 @@ def rowwise_sqdist_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (d * d).sum(-1)
 
 
-def rng_round_ref(x, ids, dists, si, sj):
+def gather_sqdist_ref(x, ni, nj, scale=None, offset=None) -> torch.Tensor:
+    """(M,) d(x[ni[m]], x[nj[m]]) over stored rows, indices clamped to
+    [0, N-1] (callers mask invalid entries themselves)."""
+    n, d = x.shape
+    if n == 0:
+        raise ValueError("gather_sqdist: the dataset has no rows to read")
+    m = ni.shape[0]
+    out = torch.empty((m,), dtype=torch.float32, device=ni.device)
+    for lo, hi in _row_blocks(m, d):
+        xi = dequant_rows(x[ni[lo:hi].clamp(0, n - 1).long()], scale, offset)
+        xj = dequant_rows(x[nj[lo:hi].clamp(0, n - 1).long()], scale, offset)
+        diff = xi - xj
+        out[lo:hi] = (diff * diff).sum(-1)
+    return out
+
+
+def rng_round_ref(x, ids, dists, si, sj, scale=None, offset=None):
     """One disordered RNG propagation round over a (C, R) pool chunk.
 
     For each sampled slot pair (si, sj) of a vertex: dij = |x[ni] - x[nj]|^2;
     the pair hits when both slots hold distinct ids and dij < max(dvi, dvj).
     Returns (dst (C,P) int32: the closer id or -1 on a miss, src (C,P)
     int32: the farther id, dij (C,P) fp32, kill (C,R) bool: OR of hits on
-    the farther endpoint's slot).
+    the farther endpoint's slot). `x` holds stored rows, dequantized with
+    the optional (D,) `scale`/`offset`.
     """
     c, r = ids.shape
     p = si.shape[1]
@@ -80,8 +129,8 @@ def rng_round_ref(x, ids, dists, si, sj):
 
     dij = torch.empty((c, p), dtype=torch.float32, device=ids.device)
     for lo, hi in _row_blocks(c, p * x.shape[1]):
-        xi = x[ni[lo:hi].clamp_min(0).reshape(-1).long()].float()
-        xj = x[nj[lo:hi].clamp_min(0).reshape(-1).long()].float()
+        xi = dequant_rows(x[ni[lo:hi].clamp_min(0).reshape(-1).long()], scale, offset)
+        xj = dequant_rows(x[nj[lo:hi].clamp_min(0).reshape(-1).long()], scale, offset)
         diff = xi - xj
         dij[lo:hi] = (diff * diff).sum(-1).reshape(hi - lo, p)
 
@@ -105,16 +154,26 @@ def visited_probe_positions(ids: torch.Tensor, h: int) -> torch.Tensor:
     return (base[..., None] + offs) % h
 
 
-def search_expand_ref(x, queries, nbrs, table):
+def search_expand_ref(
+    x, queries, nbrs, table, valid=None, scale=None, offset=None, vwords=None, fwords=None
+):
     """One beam-expansion step over (Q, R) neighbor ids.
 
     Returns (ids (Q,R) int32: -1 where nbrs < 0, dists (Q,R) fp32: the
     squared query->neighbor distance, +inf there, fresh (Q,R) bool: live
-    and absent from the query's visited-table probe window).
+    and absent from the query's visited-table probe window). `x` holds
+    stored rows, dequantized with the optional (D,) `scale`/`offset`;
+    queries stay fp32. `valid` is the optional (N,) tombstone mask: a dead
+    neighbor is exactly an empty slot (id -1, +inf, not fresh). The filter
+    operands `vwords`/`fwords` are not ported.
     """
+    if vwords is not None or fwords is not None:
+        raise NotImplementedError("search_expand_ref(vwords=, fwords=): filtered search (A.8)")
     q, r = nbrs.shape
     ok = nbrs >= 0
-    nv = x[nbrs.clamp_min(0).long()].float()  # (Q, R, D)
+    if valid is not None:
+        ok = ok & valid.bool()[nbrs.clamp_min(0).long()]
+    nv = dequant_rows(x[nbrs.clamp_min(0).long()], scale, offset)  # (Q, R, D)
     diff = queries.float()[:, None, :] - nv
     d = torch.where(ok, (diff * diff).sum(-1), torch.inf)
     pos = visited_probe_positions(nbrs, table.shape[1])  # (Q, R, PL)

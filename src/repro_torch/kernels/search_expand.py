@@ -1,15 +1,21 @@
 """One beam-search expansion step on the card.
 
 Replaces the TPU kernel `src/repro/kernels/search_expand.py::search_expand_pallas`
-in its fp32, unfiltered variant without the tombstone mask. CUDA tensors run
-the hand-written kernel of `csrc/search_expand.cu`; CPU tensors run
-`ref.search_expand_ref`.
+with its storage variants (fp32, bf16, int8 with the per-dimension dequant)
+and its `valid` tombstone mask; the filter variant is not ported (ROADMAP
+queue A.8). CUDA tensors run the hand-written kernel of
+`csrc/search_expand.cu`; CPU tensors run `ref.search_expand_ref`.
 
-Bound: the Q*R*D*4 bytes of scattered neighbor rows a step reads (245 MB at
-Q = 10,000, R = 48, D = 128). Design: one block per query with the query in
-shared memory; one warp per neighbor reads its row once as float4s and
-reduces with shuffles, while eight lanes probe the visited table's window
-and a ballot gives `fresh`. Empty slots read no row.
+Bound: the Q*R*D bytes of scattered stored neighbor rows a step reads
+(245 MB at fp32, 61 MB at int8, Q = 10,000, R = 48, D = 128). Design: one
+block per query with the query in shared memory; a group of lanes per
+neighbor, one lane per 16 B of stored row (8 for a 128-byte int8 row, so
+four neighbors share a warp; a warp for fp32), reads its row once in quads
+(four elements per load), dequantizes, and reduces with shuffles, while
+eight lanes of the group probe the visited table's window and a ballot
+gives `fresh`.
+A dead neighbor's `valid` byte is read before its row, so neither empty
+slots nor tombstones read a row.
 """
 
 from __future__ import annotations
@@ -21,36 +27,45 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGS = (_P, _I, _I, _P, _P, _L, _I, _P, _I, _P, _P, _P, _P)
+_ARGS = (_P, _I, _P, _P, _I, _I, _P, _P, _L, _I, _P, _I, _P, _P, _P, _P, _P)
 
 
-def search_expand(x, queries, nbrs, table):
+def search_expand(x, queries, nbrs, table, valid=None, scale=None, offset=None):
     """(ids, dists, fresh) of one expansion step; see `ref.search_expand_ref`.
 
-    x (N, D) fp32; queries (Q, D) fp32; nbrs (Q, R) int32; table (Q, H) int32.
+    x (N, D) fp32, bf16 or int8 with the optional (D,) fp32 scale/offset
+    dequant; queries (Q, D) fp32; nbrs (Q, R) int32; table (Q, H) int32;
+    valid: None or the (N,) bool tombstone mask.
     """
     if x.device.type == "cpu":
-        return ref.search_expand_ref(x, queries, nbrs, table)
+        return ref.search_expand_ref(x, queries, nbrs, table, valid, scale, offset)
     _build.check(
         "search_expand",
         x.device,
-        x=(x, torch.float32),
+        x=(x, _build.STORED),
         queries=(queries, torch.float32),
         nbrs=(nbrs, torch.int32),
         table=(table, torch.int32),
+        valid=(valid, torch.bool),
     )
+    _build.check_dequant("search_expand", x, scale, offset)
     (n, d), (q, r), h = x.shape, nbrs.shape, table.shape[1]
     if queries.shape != (q, d) or table.shape[0] != q or h < 1:
         raise ValueError("search_expand: queries must be (Q, D) and table (Q, H)")
+    if valid is not None and valid.shape != (n,):
+        raise ValueError(f"search_expand: valid must be ({n},)")
     dev = x.device
     out_i = torch.empty((q, r), dtype=torch.int32, device=dev)
     out_d = torch.empty((q, r), dtype=torch.float32, device=dev)
     fresh = torch.empty((q, r), dtype=torch.bool, device=dev)
     fn = _build.function("search_expand", "search_expand_launch", _ARGS)
     _build.launch(
-        "search_expand",
+        _build.variant("search_expand", x.dtype, valid=valid is not None),
         fn,
         x.data_ptr(),
+        _build.DTYPE_CODES[x.dtype],
+        _build.ptr(scale),
+        _build.ptr(offset),
         n,
         d,
         queries.data_ptr(),
@@ -59,6 +74,7 @@ def search_expand(x, queries, nbrs, table):
         r,
         table.data_ptr(),
         h,
+        _build.ptr(valid),
         out_i.data_ptr(),
         out_d.data_ptr(),
         fresh.data_ptr(),

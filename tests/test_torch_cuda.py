@@ -5,21 +5,35 @@ Marked `cuda`: without a card every test here skips. On a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Shapes cover the ragged cases the main path does not (D not a multiple of 4,
-W < r, M and N off the 64-row tiles, the 1-slot dense-mode table).
-Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other summation
-order); pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition
-cancellation); topr_merge and every integer output exactly, except
-rng_round's hit test within that tolerance of its threshold.
+W < r, M and N off the 64-row tiles, the 1-slot dense-mode table), and the
+storage variants (bf16, int8 with scale/offset) and tombstone mask of the
+dynamic path at D = 33 (no 16-byte row loads) and D = 128, with N off the
+block sizes. Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
+summation order; the dequant itself is bitwise the plain version's);
+pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition cancellation);
+topr_merge and every integer output exactly, except rng_round's hit test
+within that tolerance of its threshold.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Draws, GRNNDConfig, brute_force_knn, build_graph, recall_at_k, search
+from repro_torch.core import (
+    Draws,
+    DynamicConfig,
+    DynamicIndex,
+    GRNNDConfig,
+    brute_force_knn,
+    build_graph,
+    encode,
+    recall_at_k,
+    search,
+)
 from repro_torch.core.search import _table_insert
 from repro_torch.data import synthetic
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.gather_l2 import gather_sqdist
 from repro_torch.kernels.pairwise_l2 import pairwise_sqdist, rowwise_sqdist
 from repro_torch.kernels.rng_round import rng_round
 from repro_torch.kernels.search_expand import search_expand
@@ -39,11 +53,19 @@ def dev():
 
 
 def _launched(name, fn):
-    before = ops.launch_counts()[name]
+    before = ops.launch_counts().get(name, 0)
     out = fn()
     torch.cuda.synchronize()
-    assert ops.launch_counts()[name] == before + 1
+    assert ops.launch_counts().get(name, 0) == before + 1
     return out
+
+
+def _store(x, precision):
+    """(data, scale, offset) of `x` encoded at `precision`."""
+    return tuple(encode(x, precision))
+
+
+RUNGS = ("fp32", "bf16", "int8")
 
 
 @pytest.mark.parametrize(
@@ -132,3 +154,133 @@ def test_build_and_search_on_the_card_match_the_plain_path(dev):
         recalls.append(recall_at_k(res.ids, truth))
     assert abs(recalls[0] - recalls[1]) <= 0.01 and recalls[0] >= 0.85, recalls
     assert np.isfinite(res.dists.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+@pytest.mark.parametrize("n,d,m", [(1001, 33, 5000), (3000, 128, 70_001), (257, 16, 999)])
+def test_gather_sqdist_kernel(dev, precision, n, d, m):
+    g = torch.Generator(dev).manual_seed(n + m)
+    data, scale, offset = _store(synthetic.vector_dataset(g, n, d), precision)
+    ni = torch.randint(-5, n + 5, (m,), generator=g, device=dev, dtype=torch.int32)
+    nj = torch.randint(0, n, (m,), generator=g, device=dev, dtype=torch.int32)
+    name = "gather_sqdist" + ("" if precision == "fp32" else "/" + precision)
+    got = _launched(name, lambda: gather_sqdist(data, ni, nj, scale, offset))
+    want = ref.gather_sqdist_ref(data, ni, nj, scale, offset)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="no rows"):
+        gather_sqdist(data[:0], ni, nj, scale, offset)
+
+
+@pytest.mark.parametrize("precision", ("bf16", "int8"))
+@pytest.mark.parametrize("n,d,c,r,p", [(5003, 128, 3001, 48, 48), (700, 33, 699, 12, 16)])
+def test_rng_round_kernel_quantized(dev, precision, n, d, c, r, p):
+    g = torch.Generator(dev).manual_seed(n + d)
+    data, scale, offset = _store(synthetic.vector_dataset(g, n, d), precision)
+    xd = ref.dequant_rows(data, scale, offset)
+    ids = torch.randint(0, n, (c, r), generator=g, device=dev, dtype=torch.int32)
+    ids[torch.rand((c, r), generator=g, device=dev) < 0.2] = -1
+    owners = xd[:c].repeat_interleave(r, 0)
+    dists = ref.rowwise_sqdist_ref(owners, xd[ids.clamp_min(0).long()].reshape(-1, d))
+    dists = torch.where(ids >= 0, dists.reshape(c, r), torch.inf)
+    si = torch.randint(0, r, (c, p), generator=g, device=dev, dtype=torch.int32)
+    sj = torch.randint(0, r, (c, p), generator=g, device=dev, dtype=torch.int32)
+    got = _launched(
+        "rng_round/" + precision, lambda: rng_round(data, ids, dists, si, sj, scale, offset)
+    )
+    want = ref.rng_round_ref(data, ids, dists, si, sj, scale, offset)
+    torch.testing.assert_close(got[2], want[2], rtol=RTOL, atol=ATOL)
+    assert torch.equal(got[1], want[1])
+    thr = torch.maximum(dists.gather(1, si.long()), dists.gather(1, sj.long()))
+    near = (want[2] - thr).abs() <= ATOL + RTOL * thr.abs()
+    assert not ((got[0] != want[0]) & ~near).any()
+    assert not ((got[3] != want[3]).any(1) & ~near.any(1)).any()
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n,d,q,r,h", [(20_011, 128, 500, 48, 512), (901, 33, 64, 16, 1)])
+def test_search_expand_kernel_variants(dev, precision, masked, n, d, q, r, h):
+    g = torch.Generator(dev).manual_seed(n + q)
+    data, scale, offset = _store(torch.randn((n, d), generator=g, device=dev), precision)
+    queries = torch.randn((q, d), generator=g, device=dev)
+    nbrs = torch.randint(-1, n, (q, r), generator=g, device=dev, dtype=torch.int32)
+    table = torch.full((q, h), -1, dtype=torch.int32, device=dev)
+    if h > 1:
+        _table_insert(table, nbrs[:, : r // 2])
+    valid = (torch.rand((n,), generator=g, device=dev) > 0.3) if masked else None
+    name = "search_expand" + ("" if precision == "fp32" else "/" + precision)
+    name += "+valid" if masked else ""
+    gi, gd, gf = _launched(
+        name, lambda: search_expand(data, queries, nbrs, table, valid, scale, offset)
+    )
+    wi, wd, wf = ref.search_expand_ref(data, queries, nbrs, table, valid, scale, offset)
+    assert torch.equal(gi, wi) and torch.equal(gf, wf)
+    torch.testing.assert_close(gd, wd, rtol=RTOL, atol=ATOL)
+
+
+def test_search_expand_kernel_fp32_with_dequant(dev):
+    """fp32 rows given a scale / offset take the lane-group kernel."""
+    g = torch.Generator(dev).manual_seed(7)
+    n, d, q, r, h = 901, 36, 64, 16, 1
+    x = torch.randn((n, d), generator=g, device=dev)
+    scale = torch.rand((d,), generator=g, device=dev) + 0.5
+    offset = torch.randn((d,), generator=g, device=dev)
+    queries = torch.randn((q, d), generator=g, device=dev)
+    nbrs = torch.randint(-1, n, (q, r), generator=g, device=dev, dtype=torch.int32)
+    table = torch.full((q, h), -1, dtype=torch.int32, device=dev)
+    valid = torch.rand((n,), generator=g, device=dev) > 0.3
+    gi, gd, gf = _launched(
+        "search_expand+valid",
+        lambda: search_expand(x, queries, nbrs, table, valid, scale, offset),
+    )
+    wi, wd, wf = ref.search_expand_ref(x, queries, nbrs, table, valid, scale, offset)
+    assert torch.equal(gi, wi) and torch.equal(gf, wf)
+    torch.testing.assert_close(gd, wd, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("xp,yp", [("fp32", "int8"), ("int8", "bf16"), ("bf16", "fp32")])
+@pytest.mark.parametrize("m,n,d", [(1, 1003, 128), (70, 130, 33)])
+def test_pairwise_sqdist_kernel_quantized(dev, xp, yp, m, n, d):
+    g = torch.Generator(dev).manual_seed(m + n + d)
+    xs = _store(torch.randn((m, d), generator=g, device=dev), xp)
+    ys = _store(torch.randn((n, d), generator=g, device=dev), yp)
+    rungs = sorted({xp, yp} - {"fp32"})
+    got = _launched(
+        "pairwise_sqdist/" + "+".join(rungs),
+        lambda: pairwise_sqdist(xs[0], ys[0], xs[1], xs[2], ys[1], ys[2]),
+    )
+    want = ref.pairwise_sqdist_ref(xs[0], ys[0], xs[1], xs[2], ys[1], ys[2])
+    xd, yd = ref.dequant_rows(*xs), ref.dequant_rows(*ys)
+    scale = (xd * xd).sum(-1)[:, None] + (yd * yd).sum(-1)[None, :]
+    assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+
+
+@pytest.mark.parametrize("precision", ("bf16", "int8"))
+def test_dynamic_index_on_the_card_matches_the_plain_path(dev, precision):
+    """Insert, delete and compact through the kernels and through the plain
+    versions with the same draws: recall@10 within 0.02, deleted labels
+    never returned, and compaction leaves dense search ids unchanged."""
+    g = torch.Generator(dev).manual_seed(3)
+    x = synthetic.make_preset(g, "sift-like", 6000)
+    queries = synthetic.queries_from(g, x, 300)
+    cfg = GRNNDConfig(s=12, r=24, t1=3, t2=3, pairs_per_vertex=24)
+    dcfg = DynamicConfig(
+        seed_k=8, seed_ef=48, refine_rounds=2, pairs_per_vertex=24, precision=precision
+    )
+    recalls = []
+    for name in ("auto", "ref"):
+        with ops.backend(name):
+            pool = build_graph(x[:5000], cfg, draws=Draws(4, dev), device=dev)
+            idx = DynamicIndex(x[:5000], pool, dcfg, draws=Draws(5, dev), device=dev)
+            for lo in range(5000, 6000, 500):
+                idx.insert(x[lo : lo + 500])
+            dels = torch.arange(0, 6000, 7, device=dev)
+            idx.delete(dels)
+            res = idx.search(queries, k=10, ef=48)
+            assert not torch.isin(res.ids, dels).any()
+            recalls.append(recall_at_k(res.ids, idx.exact_knn(queries, 10)))
+            before = idx.search(queries, k=10, ef=48)
+            idx.compact()
+            after = idx.search(queries, k=10, ef=48)
+            assert torch.equal(before.ids, after.ids)
+    assert abs(recalls[0] - recalls[1]) <= 0.02 and recalls[0] >= 0.85, recalls

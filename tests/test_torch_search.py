@@ -103,9 +103,16 @@ def test_table_insert_equals_reference_exactly(h):
 
 def test_search_rejects_what_is_not_ported(graph):
     _, _, _, tx, tpool, tq = graph
-    for kw in ("valid", "rescore", "labels", "filter", "ids_map"):
+    for kw in ("labels", "filter", "ids_map"):
         with pytest.raises(NotImplementedError, match=kw):
             search(tx, tpool.ids, tq, device="cpu", **{kw: object()})
+    # valid= and rescore= are ported: an all-live mask and a rescore against
+    # the fp32 traversal tier itself (the same distance formula on the CPU)
+    # change no id and no distance
+    plain = search(tx, tpool.ids, tq, device="cpu")
+    live = torch.ones(tx.shape[0], dtype=torch.bool)
+    both = search(tx, tpool.ids, tq, device="cpu", valid=live, rescore=tx)
+    assert torch.equal(plain.ids, both.ids) and torch.equal(plain.dists, both.dists)
     with pytest.raises(ValueError):
         search(tx, tpool.ids, tq, k=10, ef=8, device="cpu")
     assert default_visited_cap(64) == j_default_visited_cap(64) == 512
