@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GRNND build, beam search and dynamic index on one
-NVIDIA card.
+"""Drive the PyTorch port's GRNND build, beam search, dynamic index, filtered
+search, host rescore tier and layout pass on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, on a machine with a card
 
@@ -9,8 +9,8 @@ Phases, each printing its own lines with seconds:
   1. device: the card's name and power limit, the torch / CUDA versions, and
      the kernels built from `src/repro_torch/kernels/csrc` (one nvcc each,
      all started together);
-  2. each hand-written kernel, and each storage (bf16, int8) and tombstone
-     variant, against its plain PyTorch version on the same CUDA inputs, at
+  2. each hand-written kernel, and each storage (bf16, int8), tombstone and
+     label-filter variant, against its plain PyTorch version on the same CUDA inputs, at
      the shapes the SIFT1M-shaped paths give it, with kernel / plain /
      library times and the least time the card could take (bytes over
      3.35 TB/s or fp32 operations over 67 TFLOP/s);
@@ -32,14 +32,30 @@ Phases, each printing its own lines with seconds:
      rows [0, 900,000), a dynamic index at bf16 traversal (the bf16 re-base),
      the same 10 insert batches, and a search with the fp32 rescore;
      recall@10 must clear the floor of 4b;
+  4d. filtered search and the layout pass on the phase-4 fp32 graph: vertex
+     labels uniform over 100 labels, 10,000 queries with predicates at
+     selectivities 0.5 / 0.1 / 0.01, each searched hashed at
+     ef = overfetch_ef(n, 10, s, 64); the predicate fraction must be exactly
+     1.0 and filtered recall@10 (against `filtered_brute_force`) must clear
+     its floor. Then `optimize(order="bfs")`: a dense search of 1,000
+     queries with and without the layout, unfiltered and filtered at
+     s = 0.1, must return bitwise-equal ids and dists; hashed QPS at ef 64
+     with and without it;
+  4e. the labeled dynamic index at int8 traversal with the fp32 rescore
+     tier in pinned host memory and the BFS layout: build on rows
+     [0, 900,000), insert the last 100,000 with their labels in 10
+     batches, a filtered search at s = 0.1 that must equal bitwise the same
+     search with the device fp32 tier as `rescore`, delete 100,000 labels,
+     `compact()` (which re-runs the layout), search filtered again: no
+     deleted label, predicate fraction 1.0, no rescore byte on the card;
   5. where the time goes: torch.profiler over one propagation round, one
      search, one insert batch and one dynamic search, the static search
      with a larger visited table and with the dense one, and the share of
      true 10-NN the built pools hold.
 
-Each path (4, 4b and 4c) runs with the launch counts set to
-0 just before it and read just after; every kernel it runs must have
-launched. Then one JSON line {"kernels": [...]} and, last,
+Each path (4, 4b, 4c, 4d's filtered and layout paths, 4e) runs with the
+launch counts set to 0 just before it and read just after; every kernel it
+runs must have launched. Then one JSON line {"kernels": [...]} and, last,
 {"ok": true, "device": ...}. Any failure raises and the exit code is
 non-zero; without a card the script exits non-zero before printing a result.
 """
@@ -65,11 +81,19 @@ from repro_torch.core import (  # noqa: E402
     brute_force_knn,
     build_graph,
     encode,
+    encode_labels,
+    filtered_brute_force,
+    filtered_recall_at_k,
     init_random,
+    optimize,
+    overfetch_ef,
+    predicate_fraction,
+    random_query_filters,
     recall_at_k,
     search,
     update_round,
 )
+from repro_torch.core.labels import pack_ids  # noqa: E402
 from repro_torch.core.pools import stage_request_matrix  # noqa: E402
 from repro_torch.core.search import _table_insert  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
@@ -114,8 +138,31 @@ BF16_KERNELS = (
     "search_expand/bf16+valid",
     "pairwise_sqdist/bf16",
 )
+# filtered search (4d): fig12's synthetic workload at SIFT1M's shape
+N_LABELS, SELECTIVITIES = 100, (0.5, 0.1, 0.01)
+# filtered recall@10 floors: they catch a broken predicate or result heap and
+# rank nothing. Grounds: the unfiltered graph reads 0.638 at ef 64 on this
+# synthetic corpus (fig12's 0.90 is at small n on its own data); a filter
+# searched at the over-fetched ef should not fall far below that at
+# s = 0.5 / 0.1, and at s = 0.01 only ~10,000 rows are allowed, so the beam
+# sees a few hundred of them.
+FILTERED_RECALL_FLOOR = {0.5: 0.40, 0.1: 0.40, 0.01: 0.10}
+LAYOUT_Q = 1_000  # dense-mask queries of the layout check (1 GB of mask)
+FILTERED_KERNELS = ("search_expand+filter", "topr_merge", "rowwise_sqdist", "pairwise_sqdist")
+LAYOUT_KERNELS = FILTERED_KERNELS + ("search_expand",)
+TIERED_CFG = DYN_CFG._replace(tier="host", layout="bfs")
+TIERED_KERNELS = (
+    "search_expand/int8+valid+filter",
+    "search_expand/int8+valid",
+    "gather_sqdist/int8",
+    "rng_round/int8",
+    "pairwise_sqdist/int8",
+    "topr_merge",
+    "rowwise_sqdist",
+)
 ROW_PATH = {**dict.fromkeys(MAIN_KERNELS, "main"), **dict.fromkeys(BF16_KERNELS, "bf16")}
 ROW_PATH.update(dict.fromkeys(DYN_KERNELS[:4], "dynamic"))
+ROW_PATH.update({"search_expand+filter": "filtered", "search_expand/int8+valid+filter": "tiered"})
 
 
 def log(msg: str) -> None:
@@ -467,6 +514,50 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         )
         del data, sc, of
         torch.cuda.empty_cache()
+
+    # -- the label filter (B3's filter variant) at the filtered paths'
+    # shapes: 100 labels (W = 4 words), predicates at selectivity 0.1
+    vwords = pack_ids(torch.randint(0, N_LABELS, (n,), generator=g, device=dev), N_LABELS)
+    fwords = random_query_filters(g, q, N_LABELS, 0.1)
+    w = vwords.shape[1]
+    data8, sc8, of8 = encode(x, "int8")
+    for name, args, live_f in (
+        ("search_expand+filter", (x, queries, nbrs, table, None, None, None), nbrs >= 0),
+        ("search_expand/int8+valid+filter", (data8, queries, nbrs, table, valid, sc8, of8), live_v),
+    ):
+        size = args[0].element_size()
+
+        def filter_check(got, want, args=args, name=name):
+            if not all(torch.equal(got[i], want[i]) for i in (0, 2, 3)):
+                raise AssertionError(f"{name} ids / fresh / allowed differ from the plain version")
+            unfiltered = search_expand(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got[:3], unfiltered)):
+                raise AssertionError(f"{name}: ids / dists / fresh not those of the unfiltered step")
+            ok = want[0] >= 0
+            err = close(got[1][ok], want[1][ok], f"{name} dists")
+            return err, f"; allowed {float(got[3].float().mean()):.3f} of slots, route-through exact"
+
+        n_live_f = int(live_f.sum())
+        measure(
+            name,
+            "src/repro_torch/kernels/csrc/search_expand.cu",
+            "src/repro/kernels/search_expand.py:170",
+            lambda args=args: search_expand(*args, vwords, fwords),
+            lambda args=args: ref.search_expand_ref(*args, vwords, fwords),
+            filter_check,
+            unique_rows(torch.where(live_f, nbrs, -1)) * (d * size + w * 4)
+            + (2 * d * 4 if args[5] is not None else 0)
+            + (unique_rows(nbrs) if args[4] is not None else 0)
+            + q * d * 4
+            + q * w * 4
+            + q * r * 14
+            + min(q * 512, live * 8) * 4,
+            n_live_f * (3 * d + (2 * d if args[5] is not None else 0)) + n_live_f * w * 2,
+            None,
+            20,
+        )
+    del data8, sc8, of8, vwords, fwords
+    torch.cuda.empty_cache()
     log(f"[kernels] done in {time.perf_counter() - t0:.1f}s")
     return rows
 
@@ -711,6 +802,187 @@ def phase_bf16(x, queries, cfg, rows) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 4d and 4e: filtered search, the layout pass, and the labeled dynamic
+# index with the host rescore tier
+# ---------------------------------------------------------------------------
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def phase_filtered(x, queries, pool, rows) -> None:
+    """4d: filtered search on the phase-4 fp32 graph at three selectivities,
+    then the layout pass on the same graph."""
+    t0 = time.perf_counter()
+    dev = x.device
+    n, k, nq = x.shape[0], 10, queries.shape[0]
+    g = torch.Generator(dev).manual_seed(SEED + 30)
+    store = encode_labels(torch.randint(0, N_LABELS, (n,), generator=g, device=dev), N_LABELS)
+    filters = {s: random_query_filters(g, nq, N_LABELS, s) for s in SELECTIVITIES}
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    for s in SELECTIVITIES:
+        fw = filters[s]
+        ef = overfetch_ef(n, k, s, 64)
+        steps = ops.launch_counts().get("search_expand+filter", 0)
+        res, secs = timed(
+            lambda: search(
+                x, pool.ids, queries, k=k, ef=ef, visited="hashed", labels=store, filter=fw,
+                device=dev,
+            )
+        )
+        steps = ops.launch_counts().get("search_expand+filter", 0) - steps
+        truth, gt_s = timed(lambda: filtered_brute_force(x, queries, fw, store.words, k))
+        frac = predicate_fraction(res.ids, fw, store.words)
+        rec = filtered_recall_at_k(res.ids, truth)
+        full = float((res.ids >= 0).float().mean())
+        log(
+            f"[filtered] s={s} ef={ef} hashed: {secs:.2f}s, {nq / secs:.0f} QPS, {steps} steps, "
+            f"mean n_expanded {float(res.n_expanded.float().mean()):.1f}, filtered recall@10 "
+            f"{rec:.4f} (floor {FILTERED_RECALL_FLOOR[s]}), predicate fraction {frac}, "
+            f"filled slots {full:.4f}; filtered_brute_force {gt_s:.2f}s"
+        )
+        if frac != 1.0:
+            raise AssertionError(f"s={s}: {frac} of returned ids satisfy their predicate")
+        if rec < FILTERED_RECALL_FLOOR[s]:
+            raise AssertionError(f"s={s}: filtered recall@10 {rec:.4f} below the floor")
+    counts = ops.launch_counts()
+    log(f"[filtered] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    path_counts("filtered", counts, FILTERED_KERNELS, rows)
+    # the result-heap merge at the widest ef: W = ef + R = 560
+    b, w = nq, 512 + pool.ids.shape[1]
+    mi = torch.randint(-1, n, (b, w), generator=g, device=dev, dtype=torch.int32)
+    md = torch.rand((b, w), generator=g, device=dev)
+    got, want = ops.topr_merge(mi, md, 512), ref.topr_merge_ref(mi, md, 512)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("topr_merge at W = 560 differs from its plain version")
+    log(
+        f"[filtered] topr_merge B={b} W={w} r=512: {cuda_ms(lambda: ops.topr_merge(mi, md, 512), 5):.3f} "
+        f"ms (plain {cuda_ms(lambda: ref.topr_merge_ref(mi, md, 512), 1):.1f} ms), equal"
+    )
+    del mi, md, got, want
+
+    ops.reset_launch_counts()
+    opt, secs = timed(lambda: optimize(x, pool, order="bfs", labels=store, device=dev))
+    log(
+        f"[layout] optimize(order='bfs') n={n}: {secs:.2f}s, packed degree {opt.degree} "
+        f"(pool width {pool.ids.shape[1]})"
+    )
+    qd, fw = queries[:LAYOUT_Q], filters[0.1][:LAYOUT_Q]
+    for f in (None, fw):
+        kw = dict(k=k, ef=64, visited="dense", labels=store, filter=f)
+        plain = search(x, pool.ids, qd, device=dev, **kw)
+        kw.pop("labels")
+        laid = opt.search(qd, **kw)
+        if not _same(plain, laid):
+            raise AssertionError(f"layout changed the dense search (filter={f is not None})")
+        log(
+            f"[layout] dense search of {LAYOUT_Q} queries, "
+            f"{'filtered s=0.1' if f is not None else 'unfiltered'}: ids, dists and "
+            "n_expanded bitwise equal with and without the layout"
+        )
+    qps = {}
+    for name, fn in (
+        ("plain", lambda: search(x, pool.ids, queries, k=k, ef=64, visited="hashed", device=dev)),
+        ("layout", lambda: opt.search(queries, k=k, ef=64, visited="hashed")),
+        ("plain", lambda: search(x, pool.ids, queries, k=k, ef=64, visited="hashed", device=dev)),
+        ("layout", lambda: opt.search(queries, k=k, ef=64, visited="hashed")),
+    ):
+        qps.setdefault(name, []).append(nq / timed(fn)[1])
+    log(
+        "[layout] hashed ef=64 QPS, plain / layout / plain / layout: "
+        + " / ".join(f"{a:.0f} / {b:.0f}" for a, b in zip(qps["plain"], qps["layout"]))
+    )
+    path_counts("layout", ops.launch_counts(), LAYOUT_KERNELS, [])
+    log(f"[filtered] done in {time.perf_counter() - t0:.1f}s")
+
+
+def phase_tiered(x, queries, cfg, rows) -> None:
+    """4e: the labeled dynamic index at int8 traversal with the host rescore
+    tier and the BFS layout, on phase 4b's protocol."""
+    t0 = time.perf_counter()
+    dev = x.device
+    n, k, nq = x.shape[0], 10, queries.shape[0]
+    g = torch.Generator(dev).manual_seed(SEED + 40)
+    vlabels = torch.randint(0, N_LABELS, (n,), generator=g, device=dev)
+    fw = random_query_filters(g, nq, N_LABELS, 0.1)
+    vw_rows = pack_ids(vlabels, N_LABELS)  # labels are the rows of x here
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    pool = build_graph(x[:DYN_BASE], cfg, draws=Draws(SEED + 41, dev), device=dev)
+    idx, s = timed(
+        lambda: DynamicIndex(
+            x[:DYN_BASE], pool, TIERED_CFG, draws=Draws(SEED + 42, dev), device=dev,
+            vertex_labels=vlabels[:DYN_BASE], n_labels=N_LABELS,
+        )
+    )
+    del pool
+    log(
+        f"[tiered] construct {TIERED_CFG} with {N_LABELS} labels: {s:.2f}s (the int8 re-base "
+        f"and the BFS layout); fp32 tier on {idx.x.device}, pinned {idx.x.is_pinned()}"
+    )
+    ins_s = 0.0
+    for lo in range(DYN_BASE, n, DYN_BATCH):
+        ins_s += timed(
+            lambda: idx.insert(x[lo : lo + DYN_BATCH], vertex_labels=vlabels[lo : lo + DYN_BATCH])
+        )[1]
+    n_ins = n - DYN_BASE
+    log(f"[tiered] insert {n_ins} with labels in {n_ins // DYN_BATCH} batches: {ins_s:.2f}s, "
+        f"{n_ins / ins_s:.0f} vectors/s")
+
+    tier = idx._rescore_tier()
+    g0, f0 = tier.gather_seconds, tier.fetched_rows
+    res, secs = timed(lambda: idx.search(queries, k=k, ef=64, visited="hashed", filter=fw))
+    gather_s, fetched = tier.gather_seconds - g0, tier.fetched_rows - f0
+    x_dev = idx.x.to(dev)
+    dev_res = search(
+        idx._tier(), idx.pool.ids, queries, k=k, ef=64, entry=idx.entry(), visited="hashed",
+        valid=idx.valid, rescore=x_dev, labels=idx.label_words(), filter=fw, device=dev,
+    )
+    del x_dev
+    if not _same((idx._to_labels(dev_res.ids), dev_res.dists, dev_res.n_expanded), res):
+        raise AssertionError("the host rescore tier differs from the device tier")
+    _check_results(res, nq, k, "tiered filtered search")
+    frac = predicate_fraction(res.ids, fw, vw_rows)
+    rec = filtered_recall_at_k(res.ids, idx.exact_knn(queries, k, filter=fw))
+    log(
+        f"[tiered] filtered search s=0.1 ef=64 hashed + host rescore: {secs:.2f}s, "
+        f"{nq / secs:.0f} QPS; host gather {gather_s:.3f}s, traversal and re-rank "
+        f"{secs - gather_s:.3f}s, fetched_rows {fetched} of {nq * 64}; bitwise equal to the "
+        f"device tier; predicate fraction {frac}; filtered recall@10 {rec:.4f}"
+    )
+    if frac != 1.0:
+        raise AssertionError(f"tiered: {frac} of returned ids satisfy their predicate")
+
+    dels = torch.randperm(n, generator=g, device=dev)[:DYN_DELETE]
+    removed, s = timed(lambda: idx.delete(dels))
+    if removed != DYN_DELETE:
+        raise AssertionError(f"delete removed {removed}")
+    _, c_s = timed(idx.compact)
+    res, secs = timed(lambda: idx.search(queries, k=k, ef=64, visited="hashed", filter=fw))
+    frac = predicate_fraction(res.ids, fw, vw_rows)
+    if bool(torch.isin(res.ids, dels).any()):
+        raise AssertionError("a deleted label came back from the tiered search")
+    if frac != 1.0:
+        raise AssertionError(f"tiered after compact: predicate fraction {frac}")
+    rec = filtered_recall_at_k(res.ids, idx.exact_knn(queries, k, filter=fw))
+    tier = idx._rescore_tier()
+    if tier.device_bytes() != 0:
+        raise AssertionError("the host rescore tier holds device bytes")
+    log(
+        f"[tiered] delete {DYN_DELETE}: {s:.3f}s; compact (with the layout pass) {c_s:.2f}s, "
+        f"size {idx.size}; filtered search {secs:.2f}s, {nq / secs:.0f} QPS, no deleted label "
+        f"returned, predicate fraction {frac}, filtered recall@10 {rec:.4f}; rescore tier "
+        f"device bytes {tier.device_bytes()}, host bytes {tier.host_bytes()}"
+    )
+    counts = ops.launch_counts()
+    log(f"[tiered] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    path_counts("tiered", counts, TIERED_KERNELS, rows)
+    log(f"[tiered] done in {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: where the time goes (after the main path's counts are read)
 # ---------------------------------------------------------------------------
 
@@ -798,6 +1070,10 @@ def main() -> None:
     idx = phase_dynamic(x, queries, cfg, recalls[64], rows)
     torch.cuda.empty_cache()
     phase_bf16(x, queries, cfg, rows)
+    torch.cuda.empty_cache()
+    phase_filtered(x, queries, pool, rows)
+    torch.cuda.empty_cache()
+    phase_tiered(x, queries, cfg, rows)
     torch.cuda.empty_cache()
     phase_profile(x, queries, pool, truth, cfg, idx)
     log(f"[total] {time.perf_counter() - t0:.1f}s")

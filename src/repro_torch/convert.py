@@ -13,6 +13,8 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core.dynamic import DynamicConfig, DynamicIndex
+from repro_torch.core.labels import LabelStore
+from repro_torch.core.layout import OptimizedIndex
 from repro_torch.core.pools import Pool
 from repro_torch.core.vecstore import VectorStore
 
@@ -49,6 +51,59 @@ def store_from_jax(data, scale=None, offset=None, device="cuda") -> VectorStore:
     )
 
 
+def labels_from_jax(words, labels=None, device="cuda") -> LabelStore:
+    """The reference's `LabelStore` (its packed words and, for a
+    single-label store, its labels) as the port's, on `device`."""
+    dev = _device.resolve(device)
+    return LabelStore(
+        _device.put(words, torch.int32, dev),
+        None if labels is None else _device.put(labels, torch.int32, dev),
+    )
+
+
+def _operand(a, dev: torch.device):
+    """A dataset operand: an array (fp32) or a (data, scale, offset) tuple
+    of a store."""
+    if isinstance(a, tuple):
+        return store_from_jax(*a, device=dev)
+    return _device.put(a, torch.float32, dev)
+
+
+def optimized_from_jax(
+    *,
+    x,
+    graph_ids,
+    entry,
+    inv,
+    perm,
+    valid=None,
+    rescore=None,
+    vwords=None,
+    order: str = "bfs",
+    pruned: bool = False,
+    device="cuda",
+) -> OptimizedIndex:
+    """The reference's `OptimizedIndex` as the port's, on `device`: `x` and
+    `rescore` are arrays or (data, scale, offset) tuples of a store, the
+    rest its permuted graph, entry, `inv` / `perm` maps, mask and label
+    words as arrays."""
+    dev = _device.resolve(device)
+    g = _device.put(graph_ids, torch.int32, dev)
+    return OptimizedIndex(
+        x=_operand(x, dev),
+        graph_ids=g,
+        entry=_device.put(entry, torch.int32, dev),
+        inv=_device.put(inv, torch.int32, dev),
+        perm=_device.put(perm, torch.int32, dev),
+        valid=None if valid is None else _device.put(valid, torch.bool, dev),
+        rescore=None if rescore is None else _operand(rescore, dev),
+        vwords=None if vwords is None else _device.put(vwords, torch.int32, dev),
+        order=order,
+        degree=int(g.shape[1]),
+        pruned=bool(pruned),
+    )
+
+
 def dynamic_from_jax(
     *,
     x,
@@ -62,6 +117,8 @@ def dynamic_from_jax(
     next_label: int,
     entry,
     rounds_run: int = 0,
+    vlabels=None,
+    n_labels: int | None = None,
     cfg: DynamicConfig = DynamicConfig(),
     draws=None,
     device="cuda",
@@ -69,8 +126,10 @@ def dynamic_from_jax(
     """A reference `DynamicIndex`'s state as the port's index: the padded
     fp32 buffer `x`, `store` = (data, scale, offset) of its traversal tier
     or None, the pool, `valid`, `labels`, the counters, the cached `entry`
-    (None = not cached) and the localized rounds run so far (the round
-    number the next draw is asked for)."""
+    (None = not cached), the localized rounds run so far (the round number
+    the next draw is asked for) and its filter labels `vlabels` with their
+    `n_labels` (None without). `cfg.tier` places the fp32 buffer: "host"
+    keeps it in host memory behind a `HostTier`."""
     dev = _device.resolve(device)
     return DynamicIndex.from_state(
         x=np.asarray(x),
@@ -83,6 +142,8 @@ def dynamic_from_jax(
         next_label=next_label,
         entry=None if entry is None else np.asarray(entry),
         rounds_run=rounds_run,
+        vlabels=None if vlabels is None else np.asarray(vlabels),
+        n_labels=n_labels,
         cfg=cfg,
         draws=draws,
         device=dev,

@@ -9,6 +9,16 @@ from repro_torch.core.grnnd import (
     reverse_edge_round,
     update_round,
 )
+from repro_torch.core.labels import (
+    LabelStore,
+    encode_label_sets,
+    encode_labels,
+    filtered_brute_force,
+    filtered_recall_at_k,
+    predicate_fraction,
+    random_query_filters,
+)
+from repro_torch.core.layout import OptimizedIndex, optimize
 from repro_torch.core.pools import (
     Pool,
     Requests,
@@ -18,8 +28,21 @@ from repro_torch.core.pools import (
     merge_into,
 )
 from repro_torch.core.recall import brute_force_knn, recall_at_k
-from repro_torch.core.search import SearchResult, default_visited_cap, medoid, search
-from repro_torch.core.vecstore import PRECISIONS, VectorStore, encode, quantize_int8
+from repro_torch.core.search import (
+    SearchResult,
+    default_visited_cap,
+    medoid,
+    overfetch_ef,
+    search,
+)
+from repro_torch.core.vecstore import (
+    PLACEMENTS,
+    PRECISIONS,
+    HostTier,
+    VectorStore,
+    encode,
+    quantize_int8,
+)
 
 __all__ = [
     "Draws",
@@ -31,6 +54,15 @@ __all__ = [
     "build_graph_with_stats",
     "update_round",
     "reverse_edge_round",
+    "LabelStore",
+    "encode_labels",
+    "encode_label_sets",
+    "filtered_brute_force",
+    "filtered_recall_at_k",
+    "predicate_fraction",
+    "random_query_filters",
+    "OptimizedIndex",
+    "optimize",
     "Pool",
     "Requests",
     "empty_pool",
@@ -41,9 +73,12 @@ __all__ = [
     "search",
     "medoid",
     "default_visited_cap",
+    "overfetch_ef",
     "brute_force_knn",
     "recall_at_k",
+    "PLACEMENTS",
     "PRECISIONS",
+    "HostTier",
     "VectorStore",
     "encode",
     "quantize_int8",

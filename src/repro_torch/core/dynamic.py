@@ -20,8 +20,9 @@ A port of the JAX package's `core/dynamic.py`. `DynamicIndex` wraps a built
 
 External identity is a monotone int64 **label** (returned by `insert`,
 taken by `delete`, reported by `search`); internal slot ids move on
-compaction, labels never do. Without the layout pass the slot-ordered label
-table is strictly increasing, so a label's slot is a binary search.
+compaction and on the layout pass (`DynamicConfig(layout=)`,
+`optimize_layout`), labels never do. A label's slot is a binary search
+through an argsort of the label table.
 
 With `DynamicConfig(precision="bf16" | "int8")` the index keeps a quantized
 traversal tier beside the fp32 buffer: the constructor re-bases every pool
@@ -29,14 +30,19 @@ edge into the traversal tier's distance space (`ops.gather_sqdist`), every
 mutation works in that space (frozen quantizer parameters, round-tripped
 inserts), and user searches re-rank against the fp32 tier.
 
-All state lives on the index's device (`device=`, default "cuda"), labels
-and compaction included; the integers are the JAX package's. Every random
-number comes from `draws.localized_pairs`. Not ported: `mesh` and
-`corpus_search` (ROADMAP queue A.10 / A.11), `layout` / `optimize_layout`
-(A.9), `vertex_labels` / `label_words` / filtered `search` with its
-`overfetch` (A.8) and `tier="host"` (A.7's `HostTier`); each raises
-`NotImplementedError` (`overfetch`, which only widens a filtered search,
-is not a parameter yet).
+With `vertex_labels=` (and the frozen `n_labels`) each slot carries one
+filter label (-1 = unlabeled), and `search(filter=)` / `exact_knn(filter=)`
+run filtered search over the live and allowed rows (`core/labels.py`).
+`DynamicConfig(tier="host")` keeps the fp32 rescore tier in (pinned) host
+memory behind a `vecstore.HostTier`; it needs a quantized traversal tier.
+`DynamicConfig(layout="bfs" | "hub")` renumbers slots for locality at
+construction and after every `compact()`.
+
+All other state lives on the index's device (`device=`, default "cuda"),
+labels and compaction included; the integers are the JAX package's. Every
+random number comes from `draws.localized_pairs`. Not ported: `mesh` and
+`corpus_search` (ROADMAP queue A.10 / A.11), which raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.core import labels as L
+from repro_torch.core import layout as LY
 from repro_torch.core import pools as P
 from repro_torch.core import vecstore as VS
 from repro_torch.core.draws import Draws
@@ -70,8 +78,10 @@ class DynamicConfig(NamedTuple):
     compact_threshold: float = 0.25  # tombstone fraction that triggers compact()
     min_capacity: int = 64  # smallest padded buffer
     precision: str = "fp32"  # traversal-tier storage
-    tier: str = "device"  # fp32 rescore-tier placement ("host" is not ported)
-    layout: str | None = None  # locality renumbering (not ported)
+    tier: str = "device"  # fp32 rescore-tier placement: "device" or "host"
+    # (pinned host memory; needs a quantized traversal tier)
+    layout: str | None = None  # locality renumbering ("bfs" / "hub"): at
+    # construction and after every compact()
 
 
 def _pow2_capacity(need: int, floor: int) -> int:
@@ -131,6 +141,11 @@ def _masked_knn_dists(x, valid, queries) -> torch.Tensor:
     return torch.where(valid[None, :], d, torch.inf)
 
 
+# rows of the host fp32 tier streamed to the card per block of `exact_knn`
+# (128 MB at D = 128)
+HOST_ROW_BLOCK = 1 << 18
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue {item})")
 
@@ -138,13 +153,18 @@ def _not_ported(what: str, item: str):
 class DynamicIndex:
     """A mutable ANN index over padded device buffers.
 
-    State (capacity C, pool width R), all on `device`:
+    State (capacity C, pool width R), on `device` but for `x` under
+    `tier="host"`:
       x      (C, D) f32  — exact-tier vectors; rows >= size are zero pads
+                           (in pinned host memory under `tier="host"`)
       store              — the traversal-tier VectorStore over (C, D) rows
                            (None at precision "fp32")
       pool   (C, R)      — neighbor ids / dists (ids are internal slots)
       valid  (C,)  bool  — False for tombstones and unallocated pads
       labels (C,)  i64   — external label per slot (-1 = pad)
+      vlabels (C,) i32   — the filter label per slot (-1 = unlabeled or
+                           pad), None without `vertex_labels`; its space
+                           `n_labels` (so the word count W) is frozen
 
     `size` is the allocated prefix (live + tombstoned), `n_live` the live
     count, `rounds_run` the localized rounds run so far (and the round
@@ -166,8 +186,6 @@ class DynamicIndex:
     ):
         if mesh is not None:
             raise _not_ported("DynamicIndex(mesh=...)", "A.10")
-        if vertex_labels is not None or n_labels is not None:
-            raise _not_ported("DynamicIndex(vertex_labels=, n_labels=)", "A.8")
         _check_cfg(cfg)
         dev = _device.resolve(device)
         x = _device.put(x, torch.float32, dev)
@@ -183,10 +201,12 @@ class DynamicIndex:
         self.rounds_run = 0
         self.draws = draws if draws is not None else Draws(0x0D11, dev)
         self._entry: torch.Tensor | None = None
+        self._dev = dev
+        self._host_tier: VS.HostTier | None = None
 
         cap = _pow2_capacity(n, cfg.min_capacity)
-        self.x = torch.zeros((cap, d), dtype=torch.float32, device=dev)
-        self.x[:n] = x
+        self.x = self._new_x(cap, d)
+        self.x[:n] = x.to(self.x.device)
         if cfg.precision == "fp32":
             self.store = None
         else:
@@ -203,6 +223,7 @@ class DynamicIndex:
                 d_t = ops.gather_sqdist(enc, owners, ids.reshape(-1).clamp_min(0)).reshape(n, -1)
                 d_t = torch.where(ids >= 0, d_t, torch.inf)
                 ids, dists = ops.topr_merge(ids, d_t, self.r)
+        del x
         self.pool = P.empty_pool(cap, self.r, dev)
         self.pool.ids[:n] = ids
         self.pool.dists[:n] = dists
@@ -211,6 +232,24 @@ class DynamicIndex:
         self.labels = torch.full((cap,), -1, dtype=torch.int64, device=dev)
         self.labels[:n] = torch.arange(n, dtype=torch.int64, device=dev)
         self._next_label = n
+        self.n_labels, self.vlabels = None, None
+        if vertex_labels is None:
+            if n_labels is not None:
+                raise ValueError("n_labels without vertex_labels")
+        else:
+            vl = _device.put(vertex_labels, torch.int32, dev)
+            if vl.shape != (n,):
+                raise ValueError(f"vertex_labels must be ({n},), got {tuple(vl.shape)}")
+            if n == 0 and n_labels is None:
+                raise ValueError("an empty labeled index needs an explicit n_labels")
+            self.n_labels = int(n_labels) if n_labels is not None else int(vl.max()) + 1
+            if n and int(vl.max()) >= self.n_labels:
+                raise ValueError(f"label {int(vl.max())} outside the frozen space {self.n_labels}")
+            self.vlabels = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+            self.vlabels[:n] = vl
+        self._vwords: torch.Tensor | None = None  # packed cache
+        if cfg.layout is not None:
+            self.optimize_layout(cfg.layout)
 
     @classmethod
     def from_state(
@@ -226,18 +265,26 @@ class DynamicIndex:
         next_label: int,
         entry,
         rounds_run: int = 0,
+        vlabels=None,
+        n_labels: int | None = None,
         cfg: DynamicConfig = DynamicConfig(),
         draws=None,
         device="cuda",
     ) -> DynamicIndex:
-        """An index holding the given state as it is (no re-base): the
-        padded fp32 buffer, the traversal store (None at fp32), pool,
-        validity, labels, counters and cached entry (None = not cached)."""
+        """An index holding the given state as it is (no re-base, no layout
+        pass): the padded fp32 buffer, the traversal store (None at fp32),
+        pool, validity, labels, counters, cached entry (None = not cached)
+        and the filter labels `vlabels` over the capacity with their
+        `n_labels` (None without)."""
         _check_cfg(cfg)
         dev = _device.resolve(device)
         self = cls.__new__(cls)
         self.cfg = cfg
-        self.x = _device.put(x, torch.float32, dev)
+        self._dev = dev
+        self._host_tier = None
+        x = _device.put(x, torch.float32, dev)
+        self.x = self._new_x(*x.shape)
+        self.x.copy_(x)
         self.store = None if store is None else VS.to_device(store, dev)
         self.pool = P.Pool(
             _device.put(pool.ids, torch.int32, dev), _device.put(pool.dists, torch.float32, dev)
@@ -249,13 +296,28 @@ class DynamicIndex:
         self.rounds_run = int(rounds_run)
         self._entry = None if entry is None else _device.put(entry, torch.int32, dev)
         self.draws = draws if draws is not None else Draws(0x0D11, dev)
+        self.vlabels = None if vlabels is None else _device.put(vlabels, torch.int32, dev)
+        self.n_labels = None if vlabels is None else int(n_labels)
+        self._vwords = None
         return self
 
     # -- bookkeeping ------------------------------------------------------
 
     @property
     def device(self) -> torch.device:
-        return self.x.device
+        """Where the index runs (the fp32 buffer may sit on the host)."""
+        return self._dev
+
+    def _new_x(self, rows: int, d: int) -> torch.Tensor:
+        """A zeroed (rows, D) fp32 buffer: on the device, or under
+        `tier="host"` in host memory (pinned when the device is a card)."""
+        if self.cfg.tier == "host":
+            return torch.zeros((rows, d), dtype=torch.float32, pin_memory=self._dev.type == "cuda")
+        return torch.zeros((rows, d), dtype=torch.float32, device=self._dev)
+
+    def _host_idx(self, idx: torch.Tensor) -> torch.Tensor:
+        """Slot indices as int64 on the fp32 buffer's device."""
+        return idx.to(self.x.device, torch.int64)
 
     @property
     def capacity(self) -> int:
@@ -272,6 +334,18 @@ class DynamicIndex:
         """The traversal-tier dataset the kernels read."""
         return self.store if self.store is not None else self.x
 
+    def _rescore_tier(self):
+        """The rescore operand of `search()`: the fp32 buffer under device
+        placement, a `HostTier` over it under host placement. The wrapper
+        shares the buffer's memory, so inserts show through, and is made
+        anew when the buffer is replaced (growth, compaction, layout);
+        `fetched_rows` accumulates in between."""
+        if self.cfg.tier != "host":
+            return self.x
+        if self._host_tier is None or self._host_tier.data is not self.x:
+            self._host_tier = VS.HostTier(self.x)  # wraps the buffer, no copy
+        return self._host_tier
+
     def entry(self) -> torch.Tensor:
         if self._entry is None:
             self._entry = medoid(self._tier(), self.valid)
@@ -283,7 +357,9 @@ class DynamicIndex:
             return
         grow = _pow2_capacity(need, cap) - cap
         pad = torch.nn.functional.pad
-        self.x = pad(self.x, (0, 0, 0, grow))
+        x = self._new_x(cap + grow, self.x.shape[1])
+        x[:cap] = self.x
+        self.x = x
         if self.store is not None:
             self.store = self.store._replace(data=pad(self.store.data, (0, 0, 0, grow)))
         self.pool = P.Pool(
@@ -292,14 +368,63 @@ class DynamicIndex:
         )
         self.valid = pad(self.valid, (0, grow))
         self.labels = pad(self.labels, (0, grow), value=-1)
+        if self.vlabels is not None:
+            self.vlabels = pad(self.vlabels, (0, grow), value=-1)
+            self._vwords = None
 
-    # -- layout and labels: not ported ------------------------------------
+    # -- layout ------------------------------------------------------------
 
-    def optimize_layout(self, order=None) -> None:
-        raise _not_ported("DynamicIndex.optimize_layout", "A.9")
+    def optimize_layout(self, order: str | None = None) -> None:
+        """Renumber slots for locality (BFS from the medoid, or hubs first:
+        `layout.order_permutation`).
 
-    def label_words(self):
-        raise _not_ported("DynamicIndex.label_words", "A.8")
+        A pure relabeling: external labels, search results in label space
+        and later mutations do not change. Vectors, both tiers, pools (rows
+        and the ids in them), validity and both label tables are permuted
+        together; the cached entry is mapped, never recomputed. Pools keep
+        their width R (inserts need the room), so only the renumbering of
+        `layout.optimize` applies; inserts land at the tail until the next
+        `compact()` re-runs it.
+        """
+        order = order if order is not None else (self.cfg.layout or "bfs")
+        if order not in LY.ORDERS:
+            raise ValueError(f"order must be one of {LY.ORDERS}, got {order!r}")
+        self.cfg = self.cfg._replace(layout=order)
+        size = self.size
+        if size <= 1 or self.n_live == 0:
+            return
+        e = int(self.entry())  # the medoid before the permutation
+        perm = LY.order_permutation(
+            self.pool.ids[:size], order, entry=e, valid=self.valid[:size]
+        )
+        self._apply_slot_permutation(perm)
+
+    def _apply_slot_permutation(self, perm: np.ndarray) -> None:
+        """Apply `perm[old_slot] = new_slot` over the allocated prefix (pad
+        rows past `size` stay put)."""
+        size, cap, dev = self.size, self.capacity, self.device
+        inv = np.argsort(perm)  # inv[new] = old
+        tail = np.arange(size, cap)
+        inv_d = torch.from_numpy(np.concatenate([inv, tail])).to(dev)
+        perm_d = torch.from_numpy(np.concatenate([perm, tail]).astype(np.int32)).to(dev)
+
+        x = self._new_x(*self.x.shape)
+        torch.index_select(self.x, 0, self._host_idx(inv_d), out=x)
+        self.x = x
+        if self.store is not None:
+            # frozen scale / offset: a pure row gather, stored bytes exact
+            self.store = self.store._replace(data=self.store.data[inv_d])
+        mapped = torch.where(self.pool.ids >= 0, perm_d[self.pool.ids.clamp_min(0).long()], -1)
+        self.pool = P.Pool(mapped[inv_d].contiguous(), self.pool.dists[inv_d].contiguous())
+        self.valid = self.valid[inv_d]
+        self.labels = self.labels[inv_d]
+        if self.vlabels is not None:
+            self.vlabels = self.vlabels[inv_d]
+            self._vwords = None
+        if self._entry is not None:
+            e = int(self._entry)
+            if 0 <= e < size:
+                self._entry = torch.tensor(int(perm[e]), dtype=torch.int32, device=dev)
 
     def corpus_search(self, *args, **kwargs):
         raise _not_ported("DynamicIndex.corpus_search", "A.11")
@@ -312,14 +437,21 @@ class DynamicIndex:
         Seed neighbors come from a search of the current graph; the
         symmetric edges and `cfg.refine_rounds` localized rounds then stitch
         the batch into the graph without touching its untouched bulk.
+        `vertex_labels` are the batch's (B,) filter labels on a labeled index
+        (inside the frozen space); without them the batch lands unlabeled
+        (-1): searchable unfiltered, matched by no predicate.
         """
-        if vertex_labels is not None:
-            raise _not_ported("DynamicIndex.insert(vertex_labels=...)", "A.8")
         dev = self.device
         xs = _device.put(xs, torch.float32, dev)
         b = xs.shape[0]
         if b == 0 or xs.shape[1] != self.x.shape[1]:
             raise ValueError(f"insert needs a non-empty (B, {self.x.shape[1]}) batch")
+        if vertex_labels is not None:
+            if self.vlabels is None:
+                raise ValueError("this index was built without vertex labels")
+            vertex_labels = _device.put(vertex_labels, torch.int32, dev)
+            if vertex_labels.shape != (b,) or int(vertex_labels.max()) >= self.n_labels:
+                raise ValueError(f"vertex_labels must be ({b},) labels below {self.n_labels}")
         cfg = self.cfg
         cap = cfg.incoming_cap if cfg.incoming_cap is not None else self.r
         seed_k = min(cfg.seed_k, self.r)
@@ -355,10 +487,14 @@ class DynamicIndex:
             seed_d, nidx = torch.sort(d, dim=1, stable=True)
             seed_d, nidx = seed_d[:, :k_boot].contiguous(), nidx[:, :k_boot]
             seed_ids = torch.where(torch.isfinite(seed_d), new_slots[nidx], -1)
-        self.x[new_slots.long()] = xs
+        self.x[self._host_idx(new_slots)] = xs.to(self.x.device)
         if self.store is not None:
             self.store.with_rows(new_slots, xs)
         self.valid[new_slots.long()] = True
+        if self.vlabels is not None:
+            if vertex_labels is not None:
+                self.vlabels[self.size : self.size + b] = vertex_labels
+            self._vwords = None
         out = torch.arange(self._next_label, self._next_label + b, dtype=torch.int64, device=dev)
         self.labels[self.size : self.size + b] = out
         self._next_label += b
@@ -398,11 +534,13 @@ class DynamicIndex:
             raise KeyError(f"unknown labels: {lab[unknown][:8].tolist()}")
         if self.size == 0:
             return 0
-        table = self.labels[: self.size]  # strictly increasing
+        # under a layout permutation the table is not slot-ordered: search
+        # through its argsort (the identity when no permutation ran)
+        table, sorter = torch.sort(self.labels[: self.size], stable=True)
         pos = torch.searchsorted(table, lab)
         # issued labels absent from the table were compacted away: no-op
         present = (pos < self.size) & (table[pos.clamp_max(self.size - 1)] == lab)
-        slots = torch.unique(pos[present])
+        slots = torch.unique(sorter[pos[present]])
         slots = slots[self.valid[slots]]
         if slots.numel():
             self.valid[slots] = False
@@ -419,7 +557,9 @@ class DynamicIndex:
 
         Tombstones are already invisible to the search, so compaction is a
         pure relabeling: search results in label space are preserved
-        exactly. The cached entry is remapped, not recomputed.
+        exactly. The cached entry is remapped, not recomputed. With
+        `cfg.layout` the layout pass then runs again over the kept rows
+        (also exact: the entry is mapped through the permutation).
         """
         size, r, dev = self.size, self.r, self.device
         keep = self.valid[:size]
@@ -437,8 +577,8 @@ class DynamicIndex:
 
         cap = _pow2_capacity(max(n_new, 1), self.cfg.min_capacity)
         d = self.x.shape[1]
-        x_new = torch.zeros((cap, d), dtype=torch.float32, device=dev)
-        x_new[:n_new] = self.x[kept]
+        x_new = self._new_x(cap, d)
+        x_new[:n_new] = self.x[self._host_idx(kept)]
         if self.store is not None:
             # frozen scale/offset: a pure row gather, stored bytes exact
             data = torch.zeros((cap, d), dtype=self.store.data.dtype, device=dev)
@@ -455,17 +595,39 @@ class DynamicIndex:
         labels = torch.full((cap,), -1, dtype=torch.int64, device=dev)
         labels[:n_new] = self.labels[:size][kept]
         self.labels = labels
+        if self.vlabels is not None:
+            vl = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+            vl[:n_new] = self.vlabels[:size][kept]
+            self.vlabels = vl
+            self._vwords = None
         if self._entry is not None:
             e = int(self._entry)
             e_new = int(new_of_old[e]) if 0 <= e < size else -1
             self._entry = None if e_new < 0 else torch.tensor(e_new, dtype=torch.int32, device=dev)
         self.size = n_new
         self.n_live = n_new
+        if self.cfg.layout is not None:
+            self.optimize_layout(self.cfg.layout)
 
     # -- queries ----------------------------------------------------------
 
     def _to_labels(self, ids: torch.Tensor) -> torch.Tensor:
         return torch.where(ids >= 0, self.labels[ids.clamp_min(0).long()], -1)
+
+    def label_words(self) -> torch.Tensor:
+        """The packed (C, W) label words over the whole padded buffer (pads
+        and unlabeled rows are zero words, matched by no predicate); cached
+        until an insert, a compaction, a growth or a layout pass."""
+        if self.vlabels is None:
+            raise ValueError("this index was built without vertex labels")
+        if self._vwords is None:
+            self._vwords = L.pack_ids(self.vlabels, self.n_labels)
+        return self._vwords
+
+    def _query_words(self, filter) -> torch.Tensor:
+        if self.vlabels is None:
+            raise ValueError("this index was built without vertex labels")
+        return _device.put(L.query_words(filter, L.n_words(self.n_labels)), torch.int32, self.device)
 
     def search(
         self,
@@ -478,15 +640,18 @@ class DynamicIndex:
         visited_cap: int | None = None,
         rescore: bool | None = None,
         filter=None,
+        overfetch: int = 4,
     ) -> SearchResult:
         """Beam search over the live graph; result ids are external labels.
 
         Traversal reads the traversal tier; at a quantized precision the
         final ef candidates are re-ranked against the fp32 tier
-        (`rescore=None` = on iff the traversal tier is quantized).
+        (`rescore=None` = on iff the traversal tier is quantized), on the
+        host under `tier="host"` with bitwise-equal results. `filter` is a
+        per-query label predicate (`core/labels.py` forms): tombstones stay
+        out of traversal, filtered-out live vertices stay traversable but
+        are never returned.
         """
-        if filter is not None:
-            raise _not_ported("DynamicIndex.search(filter=...)", "A.8")
         if rescore is None:
             rescore = self.store is not None
         res = search(
@@ -500,29 +665,63 @@ class DynamicIndex:
             visited=visited,
             visited_cap=visited_cap,
             valid=self.valid,
-            rescore=self.x if rescore else None,
+            rescore=self._rescore_tier() if rescore else None,
+            labels=None if filter is None else self.label_words(),
+            filter=None if filter is None else self._query_words(filter),
+            overfetch=overfetch,
             device=self.device,
         )
         return SearchResult(self._to_labels(res.ids), res.dists, res.n_expanded)
 
     def exact_knn(self, queries, k: int, filter=None) -> torch.Tensor:
-        """Brute-force ground truth over the live corpus, in label space,
-        in blocks of KNN_BLOCK queries."""
-        if filter is not None:
-            raise _not_ported("DynamicIndex.exact_knn(filter=...)", "A.8")
+        """Brute-force ground truth over the live corpus, in label space; with
+        `filter`, over the live and allowed corpus (slots past the allowed
+        count hold -1). Blocks of KNN_BLOCK queries; a host fp32 tier is
+        streamed to the card HOST_ROW_BLOCK rows at a time."""
         queries = _device.put(queries, torch.float32, self.device)
+        fwords = None if filter is None else self._query_words(filter)
+        words = None if filter is None else self.label_words()
         outs = []
         for lo in range(0, queries.shape[0], KNN_BLOCK):
-            d = _masked_knn_dists(self.x, self.valid, queries[lo : lo + KNN_BLOCK])
-            vals, idx = torch.topk(d, k, dim=1, largest=False)
+            qb = queries[lo : lo + KNN_BLOCK]
+            fb = None if fwords is None else fwords[lo : lo + KNN_BLOCK]
+            if self.x.device == self.device:
+                vals, idx = self._knn_block(self.x, qb, fb, words, 0, k)
+            else:
+                vals, idx = self._knn_streamed(qb, fb, words, k)
             outs.append(torch.where(torch.isfinite(vals), self.labels[idx], -1))
         return torch.cat(outs)
+
+    def _knn_block(self, rows, qb, fb, words, lo: int, k: int):
+        """Top-k (vals, slot ids) of queries `qb` over slots [lo, lo + len(rows))."""
+        hi = lo + rows.shape[0]
+        d = _masked_knn_dists(rows, self.valid[lo:hi], qb)
+        if fb is not None:
+            d = torch.where(L._hit(words[lo:hi], fb), d, torch.inf)
+        vals, idx = torch.topk(d, min(k, hi - lo), dim=1, largest=False)
+        return vals, idx + lo
+
+    def _knn_streamed(self, qb, fb, words, k: int):
+        vals = torch.full((qb.shape[0], 0), torch.inf, device=self.device)
+        idx = torch.zeros((qb.shape[0], 0), dtype=torch.int64, device=self.device)
+        for lo in range(0, self.capacity, HOST_ROW_BLOCK):
+            rows = self.x[lo : lo + HOST_ROW_BLOCK].to(self.device, non_blocking=True)
+            v, i = self._knn_block(rows, qb, fb, words, lo, k)
+            vals, order = torch.topk(torch.cat([vals, v], 1), min(k, vals.shape[1] + v.shape[1]),
+                                     dim=1, largest=False)
+            idx = torch.cat([idx, i], 1).gather(1, order)
+        return vals, idx
 
 
 def _check_cfg(cfg: DynamicConfig) -> None:
     if cfg.precision not in VS.PRECISIONS:
         raise ValueError(f"precision must be one of {VS.PRECISIONS}, got {cfg.precision!r}")
-    if cfg.tier != "device":
-        raise _not_ported(f"DynamicConfig(tier={cfg.tier!r}): the host-pinned rescore tier", "A.7")
-    if cfg.layout is not None:
-        raise _not_ported(f"DynamicConfig(layout={cfg.layout!r})", "A.9")
+    if cfg.tier not in VS.PLACEMENTS:
+        raise ValueError(f"tier must be one of {VS.PLACEMENTS}, got {cfg.tier!r}")
+    if cfg.tier == "host" and cfg.precision == "fp32":
+        raise ValueError(
+            "tier='host' needs a quantized traversal tier (at precision 'fp32' the fp32 "
+            "buffer is the traversal tier)"
+        )
+    if cfg.layout is not None and cfg.layout not in LY.ORDERS:
+        raise ValueError(f"layout must be one of {LY.ORDERS}, got {cfg.layout!r}")

@@ -20,17 +20,28 @@ neighbors; a query stops when its whole list is expanded.
     index.
   * `valid=` is the dynamic index's tombstone mask: a dead vertex is never
     expanded, scored or returned.
-  * Not ported yet: `labels` / `filter` (ROADMAP queue A.8) and `ids_map`
-    (the layout pass, A.9).
+  * Filtered search (`labels=`, `filter=`, `core/labels.py`) evaluates the
+    per-query label predicate inside the same expansion kernel and keeps a
+    separate result heap of the vertices that pass; the beam itself stays
+    unfiltered (route-through), so the walk crosses filtered-out regions.
+  * `rescore=` may be a `vecstore.HostTier`: traversal runs on the card
+    without it, the final ef candidates' rows are gathered on the host,
+    and `_rescore_merge` re-ranks them with the device tier's formula, so
+    the two placements give bitwise-equal results.
+  * `ids_map=` is the layout pass's inverse permutation (`core/layout.py`):
+    one gather after the k-slice and the re-rank turns internal rows back
+    into the caller's ids.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch import device as _device
+from repro_torch.core import labels as L
 from repro_torch.core import vecstore as VS
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import visited_probe_positions
@@ -58,6 +69,14 @@ def medoid(x, valid: torch.Tensor | None = None) -> torch.Tensor:
     c = ((VS.dequant(x) * v[:, None]).sum(0) / v.sum().clamp_min(1.0))[None, :]
     d = torch.where(valid, ops.pairwise_sqdist(c, x)[0], torch.inf)
     return d.argmin().to(torch.int32)
+
+
+def overfetch_ef(n: int, k: int, selectivity: float, ef: int) -> int:
+    """The low-selectivity over-fetch policy of filtered search: widen the
+    beam toward ~4·k/selectivity so ~k allowed survivors exist, clamped at
+    the corpus size and at EF_CEILING (past it the per-step merge's O(ef²)
+    work costs more than the recall it buys)."""
+    return max(ef, min(n, math.ceil(4 * k / selectivity), EF_CEILING))
 
 
 def default_visited_cap(ef: int) -> int:
@@ -98,62 +117,34 @@ def _table_member(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return (table.gather(1, pos).reshape(q, r, -1) == ids[..., None]).any(-1)
 
 
-def search(
-    x,
-    graph_ids,
-    queries,
-    *,
-    k: int = 10,
-    ef: int = 64,
-    max_steps: int = 512,
-    entry=None,
-    visited: str = "dense",
-    visited_cap: int | None = None,
-    valid=None,
-    rescore=None,
-    labels=None,
-    filter=None,
-    ids_map=None,
-    device="cuda",
-) -> SearchResult:
-    """Search the graph for the k nearest vertices to each query row.
+def _rescore_merge(out_ids, rv, queries, ids_map, k: int):
+    """The re-rank tail of a search with a rescore tier: exact fp32
+    distances of the (Q, ef) candidates against their gathered rows `rv`,
+    pads masked to +inf by id (so a pad row's content is irrelevant), the
+    merge primitive as a pure re-sort, the k-slice, then `ids_map`. The
+    device and host tiers both run it, so their results are bitwise equal."""
+    diff = queries[:, None, :] - rv
+    d_exact = torch.where(out_ids >= 0, (diff * diff).sum(-1), torch.inf)
+    out_ids, out_dists = ops.topr_merge(out_ids, d_exact, out_ids.shape[1])
+    return _map_ids(out_ids[:, :k], ids_map), out_dists[:, :k]
 
-    x (the (N, D) traversal tier: a tensor or a `VectorStore`), graph_ids
-    (N, R) int32 and queries (Q, D) are moved to `device` (default "cuda";
-    raises without a card). `entry` defaults to the medoid. `visited` is
-    "dense" (exact (Q, N) mask) or "hashed" (`visited_cap` slots per query,
-    default `default_visited_cap(ef)`). `valid` is an (N,) bool mask of live
-    vertices. `rescore` is an (N, D) fp32 tier (or a store) whose rows
-    re-rank the final ef candidates with exact distances.
-    """
-    for name, value, item in (
-        ("labels", labels, "A.8"),
-        ("filter", filter, "A.8"),
-        ("ids_map", ids_map, "A.9"),
-    ):
-        if value is not None:
-            raise NotImplementedError(
-                f"search({name}=...) is not ported yet (ROADMAP queue {item})"
-            )
-    if ef < k:
-        raise ValueError(f"ef={ef} must be at least k={k}")
-    if visited not in ("dense", "hashed"):
-        raise ValueError(f"visited must be 'dense' or 'hashed', got {visited!r}")
-    if visited_cap is not None and visited_cap <= 0:
-        raise ValueError(f"visited_cap must be positive, got {visited_cap}")
 
-    dev = _device.resolve(device)
-    x = VS.to_device(x, dev)
-    graph_ids = _device.put(graph_ids, torch.int32, dev)
-    queries = _device.put(queries, torch.float32, dev)
-    if valid is not None:
-        valid = _device.put(valid, torch.bool, dev)
-    if rescore is not None:
-        rescore = VS.to_device(rescore, dev)
-    entry = medoid(x, valid) if entry is None else _device.put(entry, torch.int32, dev)
+def _map_ids(ids, ids_map):
+    """Internal rows -> the caller's ids through the layout's inverse
+    permutation (None: ids as they are)."""
+    if ids_map is None:
+        return ids
+    return torch.where(ids >= 0, ids_map[ids.clamp_min(0).long()], -1)
+
+
+def _traverse(x, graph_ids, queries, entry, valid, vwords, fwords, ef, max_steps, visited, cap):
+    """The beam loop: (Q, ef) ids and dists of the final beam, or of the
+    result heap under a filter, and n_expanded."""
+    dev = queries.device
     n = VS.nrows(x)
     q = queries.shape[0]
     qrows = torch.arange(q, device=dev)
+    filtered = fwords is not None
 
     d_entry = ops.rowwise_sqdist(queries, VS.take(x, entry).expand(q, -1).contiguous())
     if valid is not None:
@@ -167,13 +158,23 @@ def search(
     expanded = torch.zeros((q, ef), dtype=torch.bool, device=dev)
     n_exp = torch.zeros((q,), dtype=torch.int32, device=dev)
 
+    if filtered:
+        # the result heap: the beam keeps every live vertex so the walk can
+        # route through filtered-out regions; only this heap, what the caller
+        # sees, applies the predicate. It starts with the entry iff the
+        # entry passes.
+        e_ok = ((vwords[entry.long()][None, :] & fwords) != 0).any(-1) & torch.isfinite(d_entry)
+        res_ids = torch.full((q, ef), -1, dtype=torch.int32, device=dev)
+        res_ids[:, 0] = torch.where(e_ok, entry, -1)
+        res_dists = torch.full((q, ef), torch.inf, dtype=torch.float32, device=dev)
+        res_dists[:, 0] = torch.where(e_ok, d_entry, torch.inf)
+
     if visited == "dense":
         vstate = torch.zeros((q, n), dtype=torch.uint8, device=dev)
         vstate[:, entry.long()] = 1
         # an empty 1-slot table makes the kernel's probe a no-op
         lookup = torch.full((q, 1), -1, dtype=torch.int32, device=dev)
     else:
-        cap = visited_cap if visited_cap is not None else default_visited_cap(ef)
         vstate = torch.full((q, cap), -1, dtype=torch.int32, device=dev)
         _table_insert(vstate, entry.expand(q, 1))
         lookup = vstate
@@ -190,7 +191,8 @@ def search(
 
         nbrs = graph_ids[sel_id.clamp_min(0).long()]  # (Q, R)
         nbrs = torch.where(active[:, None] & (nbrs >= 0), nbrs, -1)
-        nbrs, dq, fresh = ops.search_expand(x, queries, nbrs, lookup, valid)
+        out = ops.search_expand(x, queries, nbrs, lookup, valid, vwords, fwords)
+        nbrs, dq, fresh = out[:3]
         if visited == "dense":
             idx = nbrs.clamp_min(0).long()
             fresh = fresh & ~vstate.gather(1, idx).bool()
@@ -202,7 +204,8 @@ def search(
         n_exp += fresh.sum(-1, dtype=torch.int32)
 
         # keep the ef best of (candidates ∪ fresh neighbors); candidates come
-        # first, so a re-entering duplicate keeps its original beam slot
+        # first, so a re-entering duplicate keeps its original beam slot. The
+        # beam takes fresh neighbors whatever the predicate says.
         all_ids = torch.cat([cand_ids, torch.where(fresh, nbrs, -1)], dim=-1)
         all_d = torch.cat([cand_dists, dq], dim=-1)
         new_ids, new_d = ops.topr_merge(all_ids, all_d, ef)
@@ -212,14 +215,99 @@ def search(
         exp_src = torch.where(expanded & (cand_ids >= 0), cand_ids, -2)
         expanded = (new_ids[:, :, None] == exp_src[:, None, :]).any(-1) | (new_ids < 0)
         cand_ids, cand_dists = new_ids, new_d
+        if filtered:
+            # a vertex enters the result heap once, at its fresh sighting,
+            # with its real distance, iff the predicate admits it
+            keep = fresh & out[3]
+            res_ids, res_dists = ops.topr_merge(
+                torch.cat([res_ids, torch.where(keep, nbrs, -1)], dim=-1),
+                torch.cat([res_dists, torch.where(keep, dq, torch.inf)], dim=-1),
+                ef,
+            )
 
-    if rescore is not None:
-        # re-rank the final ef candidates with exact distances against the
-        # rescore tier: one (Q, ef, D) gather, pads masked by id, then the
-        # merge primitive (ids are already unique, so a pure re-sort)
-        rv = VS.take(rescore, cand_ids.clamp_min(0))  # (Q, ef, D)
-        diff = queries[:, None, :] - rv
-        d_exact = torch.where(cand_ids >= 0, (diff * diff).sum(-1), torch.inf)
-        cand_ids, cand_dists = ops.topr_merge(cand_ids, d_exact, ef)
+    if filtered:
+        return res_ids, res_dists, n_exp
+    return cand_ids, cand_dists, n_exp
 
-    return SearchResult(cand_ids[:, :k], cand_dists[:, :k], n_exp)
+
+def search(
+    x,
+    graph_ids,
+    queries,
+    *,
+    k: int = 10,
+    ef: int = 64,
+    max_steps: int = 512,
+    entry=None,
+    visited: str = "dense",
+    visited_cap: int | None = None,
+    valid=None,
+    rescore=None,
+    labels=None,
+    filter=None,
+    overfetch: int = 4,
+    ids_map=None,
+    device="cuda",
+) -> SearchResult:
+    """Search the graph for the k nearest vertices to each query row.
+
+    x (the (N, D) traversal tier: a tensor or a `VectorStore`), graph_ids
+    (N, R) int32 and queries (Q, D) are moved to `device` (default "cuda";
+    raises without a card). `entry` defaults to the medoid. `visited` is
+    "dense" (exact (Q, N) mask) or "hashed" (`visited_cap` slots per query,
+    default `default_visited_cap(ef)`). `valid` is an (N,) bool mask of live
+    vertices. `rescore` is an (N, D) fp32 tier (or a store) whose rows
+    re-rank the final ef candidates with exact distances, or a
+    `vecstore.HostTier` holding them on the host.
+
+    `labels` (a `LabelStore` or (N, W) packed words) and `filter` (packed
+    (Q, W) words, a (Q, L) bool label mask or (Q,) label ids) select
+    filtered search: every returned id satisfies its query's predicate, and
+    the working ef is at least `overfetch * k`. `labels` alone is inert.
+    `ids_map` is an (N,) int32 map applied to the returned ids last (the
+    layout pass's inverse permutation).
+    """
+    if ef < k:
+        raise ValueError(f"ef={ef} must be at least k={k}")
+    if visited not in ("dense", "hashed"):
+        raise ValueError(f"visited must be 'dense' or 'hashed', got {visited!r}")
+    if visited_cap is not None and visited_cap <= 0:
+        raise ValueError(f"visited_cap must be positive, got {visited_cap}")
+
+    dev = _device.resolve(device)
+    x = VS.to_device(x, dev)
+    graph_ids = _device.put(graph_ids, torch.int32, dev)
+    queries = _device.put(queries, torch.float32, dev)
+    if valid is not None:
+        valid = _device.put(valid, torch.bool, dev)
+    vwords = fwords = None
+    if filter is not None:
+        if labels is None:
+            raise ValueError("filtered search needs a label store (labels=)")
+        vwords = _device.put(L.store_words(labels), torch.int32, dev)
+        fwords = _device.put(L.query_words(filter, vwords.shape[1]), torch.int32, dev)
+        ef = max(ef, overfetch * k)
+    if ids_map is not None:
+        ids_map = _device.put(ids_map, torch.int32, dev)
+    host = VS.is_host(rescore)
+    if rescore is not None and not host:
+        rescore = VS.to_device(rescore, dev)
+    entry = medoid(x, valid) if entry is None else _device.put(entry, torch.int32, dev)
+    cap = 0
+    if visited == "hashed":
+        cap = visited_cap if visited_cap is not None else default_visited_cap(ef)
+
+    out_ids, out_dists, n_exp = _traverse(
+        x, graph_ids, queries, entry, valid, vwords, fwords, ef, max_steps, visited, cap
+    )
+    if rescore is None:
+        return SearchResult(_map_ids(out_ids[:, :k], ids_map), out_dists[:, :k], n_exp)
+    # re-rank the final ef candidates (under a filter: the result heap, which
+    # holds allowed ids only) with exact distances: one (Q, ef, D) gather, on
+    # the card or, for the host tier, on the host
+    if host:
+        rv = rescore.gather(out_ids)
+    else:
+        rv = VS.take(rescore, out_ids.clamp_min(0))
+    out_ids, out_dists = _rescore_merge(out_ids, rv, queries, ids_map, k)
+    return SearchResult(out_ids, out_dists, n_exp)

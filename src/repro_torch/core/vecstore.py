@@ -22,12 +22,16 @@ Exact results come back through the fp32 rescore of `core/search.py`
 (`rescore=`): the final ef candidates are re-ranked against fp32 rows.
 
 Every helper below takes a store or a plain (N, D) tensor, so the build and
-search layers accept either. The host-pinned rescore tier (`HostTier`,
-`PLACEMENTS`) is not ported yet (ROADMAP queue A.7).
+search layers accept either.
+
+`HostTier` places the fp32 rescore tier in host memory (pinned when the
+card is in use), leaving the card only the traversal tier: the search
+gathers the final ef candidates' rows on the host and ships only those.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
@@ -198,3 +202,83 @@ def to_device(x, dev: torch.device):
     if isinstance(x, torch.Tensor) and x.dtype in _STORED:
         return x.to(dev).contiguous()
     return _device.put(x, torch.float32, dev)
+
+
+# -- tier placement: traversal tier on the card, rescore tier on the host ---
+
+PLACEMENTS = ("device", "host")
+
+
+class HostTier:
+    """The fp32 rescore tier in host memory.
+
+    Holds the pre-dequantized (N, D) fp32 rows on the CPU, pinned when the
+    given rows lie on a CUDA device or are pinned already, so a gather's
+    rows reach the card by a non-blocking copy. A CPU fp32 tensor is
+    wrapped without a copy, so writes to it show through. The rows are those `VectorStore.take` gives on the card
+    (the one `dequant_rows` formula), so the re-rank over them is bitwise
+    that of the device tier.
+
+    A plain class, not a tuple: the search tells it from a device operand
+    with `is_host`. `gather` ships only the rows of real ids (id >= 0);
+    `fetched_rows` counts them and `gather_seconds` sums the host clock of
+    the gathers (the row gather on the host and the copy to the card).
+    """
+
+    def __init__(self, x):
+        src = dequant(x) if isinstance(x, VectorStore) else x
+        if not isinstance(src, torch.Tensor):
+            src = _device.put(src, torch.float32, torch.device("cpu"))
+        pin = src.device.type == "cuda" or (src.device.type == "cpu" and src.is_pinned())
+        data = src.float().to("cpu").contiguous()
+        if pin and not data.is_pinned():
+            data = data.pin_memory()
+        self.data = data
+        self.fetched_rows = 0
+        self.gather_seconds = 0.0
+
+    @property
+    def n(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.data.shape)
+
+    def device_bytes(self) -> int:
+        """Card-resident bytes of this tier: none."""
+        return 0
+
+    def host_bytes(self) -> int:
+        return self.data.numel() * self.data.element_size()
+
+    def gather(self, ids: torch.Tensor) -> torch.Tensor:
+        """fp32 rows (ids.shape + (D,)) for candidate ids, on ids' device.
+
+        Only rows with id >= 0 are gathered on the host (`index_select`,
+        into a pinned buffer when the tier is pinned) and copied over; pad
+        slots come back as zero rows (the re-rank masks them by id)."""
+        t0 = time.perf_counter()
+        dev = ids.device
+        flat = ids.reshape(-1)
+        real = torch.nonzero(flat >= 0).squeeze(1)  # positions of real ids
+        rows_idx = flat[real].to("cpu", torch.int64)
+        pinned = self.data.is_pinned()
+        rows = torch.empty((rows_idx.shape[0], self.dim), pin_memory=pinned)
+        torch.index_select(self.data, 0, rows_idx, out=rows)
+        out = torch.zeros((flat.shape[0], self.dim), dtype=torch.float32, device=dev)
+        out[real] = rows.to(dev, non_blocking=pinned)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()  # `rows` may be reused after this
+        self.fetched_rows += int(rows_idx.shape[0])
+        self.gather_seconds += time.perf_counter() - t0
+        return out.reshape(*ids.shape, self.dim)
+
+
+def is_host(x) -> bool:
+    """Placement probe: is this rescore operand the host tier?"""
+    return isinstance(x, HostTier)

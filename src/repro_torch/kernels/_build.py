@@ -15,8 +15,9 @@ a finished build is reused. `nvcc` is taken from `$CUDA_HOME/bin` (default
 
 `launch` is the one place a kernel is started: it raises on a non-zero
 error code and counts the launch in `LAUNCHES` under the variant's name:
-the kernel's name, then `/bf16` or `/int8` for a quantized storage rung
-and `+valid` for the tombstone mask (`search_expand/int8+valid`).
+the kernel's name, then `/bf16` or `/int8` for a quantized storage rung,
+`+valid` for the tombstone mask and `+filter` for the label predicate
+(`search_expand/int8+valid+filter`).
 """
 
 from __future__ import annotations
@@ -143,12 +144,13 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def variant(kernel: str, *dtypes: torch.dtype, valid: bool = False) -> str:
+def variant(kernel: str, *dtypes: torch.dtype, valid: bool = False, filter: bool = False) -> str:
     """The launch-count name of a kernel variant: `kernel`, then the
-    quantized rungs among `dtypes` (`/int8`, `/bf16+int8`), then `+valid`."""
+    quantized rungs among `dtypes` (`/int8`, `/bf16+int8`), then `+valid`,
+    then `+filter`."""
     rungs = sorted({_RUNG[t] for t in dtypes} - {""})
     name = kernel + ("/" + "+".join(rungs) if rungs else "")
-    return name + ("+valid" if valid else "")
+    return name + ("+valid" if valid else "") + ("+filter" if filter else "")
 
 
 def launch(kernel: str, fn, *args) -> None:

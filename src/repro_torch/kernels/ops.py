@@ -117,15 +117,15 @@ def topr_merge(ids: torch.Tensor, dists: torch.Tensor, r: int):
 
 
 def search_expand(x, queries, nbrs, table, valid=None, vwords=None, fwords=None):
-    """One beam-expansion step: (ids, dists, fresh). `x` may be a store;
-    `valid` is the optional (N,) tombstone mask. The filter operands are
-    not ported (ROADMAP queue A.8)."""
-    if vwords is not None or fwords is not None:
-        raise NotImplementedError("search_expand(vwords=, fwords=): filtered search (A.8)")
+    """One beam-expansion step: (ids, dists, fresh), and `allowed` fourth
+    with the label predicate. `x` may be a store; `valid` is the optional
+    (N,) tombstone mask; `vwords` (N, W) / `fwords` (Q, W) int32 are the
+    predicate words, both or neither (route-through: ids, dists and fresh
+    are those of the unfiltered step)."""
     xd, xs, xo = parts(x)
     if _BACKEND == "ref":
-        return ref.search_expand_ref(xd, queries, nbrs, table, valid, xs, xo)
-    return _search_expand(xd, queries, nbrs, table, valid, xs, xo)
+        return ref.search_expand_ref(xd, queries, nbrs, table, valid, xs, xo, vwords, fwords)
+    return _search_expand(xd, queries, nbrs, table, valid, xs, xo, vwords, fwords)
 
 
 def rng_propagation_round(x, ids, dists, si, sj):

@@ -4,8 +4,8 @@ dynamic-index paths.
 Each function computes what its counterpart in the JAX package's
 `repro/kernels/ref.py` computes, on every rung of the precision ladder
 (fp32, bf16 and int8 storage, with the per-dimension `scale`/`offset`
-dequant) and with the tombstone mask of `search_expand_ref`; the filter
-operands are not ported. They are the port's own oracle: the CPU tests run
+dequant) and with the tombstone mask and label predicate of
+`search_expand_ref`. They are the port's own oracle: the CPU tests run
 them, and on the card `chip_smoke.py` holds each hand-written CUDA kernel
 against them on the same inputs. On the main path they run only for CPU
 tensors or under `ops.backend("ref")`.
@@ -164,11 +164,15 @@ def search_expand_ref(
     and absent from the query's visited-table probe window). `x` holds
     stored rows, dequantized with the optional (D,) `scale`/`offset`;
     queries stay fp32. `valid` is the optional (N,) tombstone mask: a dead
-    neighbor is exactly an empty slot (id -1, +inf, not fresh). The filter
-    operands `vwords`/`fwords` are not ported.
+    neighbor is exactly an empty slot (id -1, +inf, not fresh).
+
+    `vwords` (N, W) / `fwords` (Q, W) int32 are the optional label
+    predicate, both or neither: with them a fourth output `allowed` (Q, R)
+    bool = live and `any(vwords[id] & fwords[q] != 0)`. Route-through: the
+    predicate changes neither ids, dists nor fresh.
     """
-    if vwords is not None or fwords is not None:
-        raise NotImplementedError("search_expand_ref(vwords=, fwords=): filtered search (A.8)")
+    if (vwords is None) != (fwords is None):
+        raise ValueError("search_expand_ref: give both vwords and fwords, or neither")
     q, r = nbrs.shape
     ok = nbrs >= 0
     if valid is not None:
@@ -179,7 +183,11 @@ def search_expand_ref(
     pos = visited_probe_positions(nbrs, table.shape[1])  # (Q, R, PL)
     vals = table.gather(1, pos.reshape(q, -1).long()).reshape(q, r, HASH_PROBES)
     found = (vals == nbrs[..., None]).any(-1)
-    return torch.where(ok, nbrs, -1).int(), d, ok & ~found
+    out = (torch.where(ok, nbrs, -1).int(), d, ok & ~found)
+    if vwords is None:
+        return out
+    lw = vwords[nbrs.clamp_min(0).long()]  # (Q, R, W)
+    return (*out, ok & ((lw & fwords[:, None, :]) != 0).any(-1))
 
 
 def topr_merge_ref(ids: torch.Tensor, dists: torch.Tensor, r: int):

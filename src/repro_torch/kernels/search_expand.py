@@ -1,9 +1,9 @@
 """One beam-search expansion step on the card.
 
 Replaces the TPU kernel `src/repro/kernels/search_expand.py::search_expand_pallas`
-with its storage variants (fp32, bf16, int8 with the per-dimension dequant)
-and its `valid` tombstone mask; the filter variant is not ported (ROADMAP
-queue A.8). CUDA tensors run the hand-written kernel of
+with its storage variants (fp32, bf16, int8 with the per-dimension dequant),
+its `valid` tombstone mask and its filter variant (the label predicate of
+filtered search). CUDA tensors run the hand-written kernel of
 `csrc/search_expand.cu`; CPU tensors run `ref.search_expand_ref`.
 
 Bound: the Q*R*D bytes of scattered stored neighbor rows a step reads
@@ -15,7 +15,11 @@ four neighbors share a warp; a warp for fp32), reads its row once in quads
 eight lanes of the group probe the visited table's window and a ballot
 gives `fresh`.
 A dead neighbor's `valid` byte is read before its row, so neither empty
-slots nor tombstones read a row.
+slots nor tombstones read a row. With the filter, the query's W predicate
+words sit in shared memory after the query; a live neighbor's group reads
+its W label words once (int4 loads when W % 4 == 0), ANDs them with the
+staged words and folds the result with a ballot into `allowed`; ids, dists
+and fresh are those of the unfiltered step (route-through).
 """
 
 from __future__ import annotations
@@ -27,18 +31,27 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGS = (_P, _I, _P, _P, _I, _I, _P, _P, _L, _I, _P, _I, _P, _P, _P, _P, _P)
+_ARGS = (_P, _I, _P, _P, _I, _I, _P, _P, _L, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P)
 
 
-def search_expand(x, queries, nbrs, table, valid=None, scale=None, offset=None):
-    """(ids, dists, fresh) of one expansion step; see `ref.search_expand_ref`.
+def search_expand(
+    x, queries, nbrs, table, valid=None, scale=None, offset=None, vwords=None, fwords=None
+):
+    """(ids, dists, fresh[, allowed]) of one expansion step; see
+    `ref.search_expand_ref`.
 
     x (N, D) fp32, bf16 or int8 with the optional (D,) fp32 scale/offset
     dequant; queries (Q, D) fp32; nbrs (Q, R) int32; table (Q, H) int32;
-    valid: None or the (N,) bool tombstone mask.
+    valid: None or the (N,) bool tombstone mask; vwords (N, W) / fwords
+    (Q, W) int32: the label predicate, both or neither (with them a fourth
+    output, `allowed` (Q, R) bool).
     """
+    if (vwords is None) != (fwords is None):
+        raise ValueError("search_expand: give both vwords and fwords, or neither")
     if x.device.type == "cpu":
-        return ref.search_expand_ref(x, queries, nbrs, table, valid, scale, offset)
+        return ref.search_expand_ref(
+            x, queries, nbrs, table, valid, scale, offset, vwords, fwords
+        )
     _build.check(
         "search_expand",
         x.device,
@@ -47,6 +60,8 @@ def search_expand(x, queries, nbrs, table, valid=None, scale=None, offset=None):
         nbrs=(nbrs, torch.int32),
         table=(table, torch.int32),
         valid=(valid, torch.bool),
+        vwords=(vwords, torch.int32),
+        fwords=(fwords, torch.int32),
     )
     _build.check_dequant("search_expand", x, scale, offset)
     (n, d), (q, r), h = x.shape, nbrs.shape, table.shape[1]
@@ -54,13 +69,18 @@ def search_expand(x, queries, nbrs, table, valid=None, scale=None, offset=None):
         raise ValueError("search_expand: queries must be (Q, D) and table (Q, H)")
     if valid is not None and valid.shape != (n,):
         raise ValueError(f"search_expand: valid must be ({n},)")
+    filtered = vwords is not None
+    w = vwords.shape[1] if filtered else 0
+    if filtered and (vwords.shape != (n, w) or fwords.shape != (q, w) or w < 1):
+        raise ValueError(f"search_expand: vwords must be ({n}, W) and fwords ({q}, W), W >= 1")
     dev = x.device
     out_i = torch.empty((q, r), dtype=torch.int32, device=dev)
     out_d = torch.empty((q, r), dtype=torch.float32, device=dev)
     fresh = torch.empty((q, r), dtype=torch.bool, device=dev)
+    allowed = torch.empty((q, r), dtype=torch.bool, device=dev) if filtered else None
     fn = _build.function("search_expand", "search_expand_launch", _ARGS)
     _build.launch(
-        _build.variant("search_expand", x.dtype, valid=valid is not None),
+        _build.variant("search_expand", x.dtype, valid=valid is not None, filter=filtered),
         fn,
         x.data_ptr(),
         _build.DTYPE_CODES[x.dtype],
@@ -75,9 +95,13 @@ def search_expand(x, queries, nbrs, table, valid=None, scale=None, offset=None):
         table.data_ptr(),
         h,
         _build.ptr(valid),
+        _build.ptr(vwords),
+        _build.ptr(fwords),
+        w,
         out_i.data_ptr(),
         out_d.data_ptr(),
         fresh.data_ptr(),
+        _build.ptr(allowed),
         _build.stream_ptr(dev),
     )
-    return out_i, out_d, fresh
+    return (out_i, out_d, fresh, allowed) if filtered else (out_i, out_d, fresh)

@@ -8,7 +8,9 @@ Shapes cover the ragged cases the main path does not (D not a multiple of 4,
 W < r, M and N off the 64-row tiles, the 1-slot dense-mode table), and the
 storage variants (bf16, int8 with scale/offset) and tombstone mask of the
 dynamic path at D = 33 (no 16-byte row loads) and D = 128, with N off the
-block sizes. Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
+block sizes, and the label filter of search_expand at W = 1, 3, 4 and 5
+words (int4 loads only at W = 4) and R = 13 (not a multiple of a lane
+group), with labels on the int32 sign bit. Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
 summation order; the dequant itself is bitwise the plain version's);
 pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition cancellation);
 topr_merge and every integer output exactly, except rng_round's hit test
@@ -21,6 +23,11 @@ import torch
 
 from repro_torch.core import (
     Draws,
+    HostTier,
+    encode_labels,
+    optimize,
+    predicate_fraction,
+    random_query_filters,
     DynamicConfig,
     DynamicIndex,
     GRNNDConfig,
@@ -30,6 +37,7 @@ from repro_torch.core import (
     recall_at_k,
     search,
 )
+from repro_torch.core.labels import pack_ids
 from repro_torch.core.search import _table_insert
 from repro_torch.data import synthetic
 from repro_torch.kernels import ops, ref
@@ -284,3 +292,88 @@ def test_dynamic_index_on_the_card_matches_the_plain_path(dev, precision):
             after = idx.search(queries, k=10, ef=48)
             assert torch.equal(before.ids, after.ids)
     assert abs(recalls[0] - recalls[1]) <= 0.02 and recalls[0] >= 0.85, recalls
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("w", [1, 3, 4, 5])
+@pytest.mark.parametrize("n,d,q,r,h", [(20_011, 128, 300, 48, 512), (901, 33, 64, 13, 1)])
+def test_search_expand_kernel_filter(dev, precision, masked, w, n, d, q, r, h):
+    """The filter variant: `allowed` exactly the plain version's; ids,
+    dists and fresh bitwise those of the same launch without the filter."""
+    g = torch.Generator(dev).manual_seed(n + w)
+    data, scale, offset = _store(torch.randn((n, d), generator=g, device=dev), precision)
+    queries = torch.randn((q, d), generator=g, device=dev)
+    nbrs = torch.randint(-1, n, (q, r), generator=g, device=dev, dtype=torch.int32)
+    table = torch.full((q, h), -1, dtype=torch.int32, device=dev)
+    if h > 1:
+        _table_insert(table, nbrs[:, : r // 2])
+    valid = (torch.rand((n,), generator=g, device=dev) > 0.3) if masked else None
+    n_labels = 32 * w  # label 31, 63, ... sit on the int32 sign bit
+    vwords = pack_ids(torch.randint(-1, n_labels, (n,), generator=g, device=dev), n_labels)
+    fwords = random_query_filters(g, q, n_labels, 0.3)
+    name = "search_expand" + ("" if precision == "fp32" else "/" + precision)
+    name += "+valid" if masked else ""
+    got = _launched(
+        name + "+filter",
+        lambda: search_expand(data, queries, nbrs, table, valid, scale, offset, vwords, fwords),
+    )
+    want = ref.search_expand_ref(data, queries, nbrs, table, valid, scale, offset, vwords, fwords)
+    plain = search_expand(data, queries, nbrs, table, valid, scale, offset)
+    assert len(got) == 4 and torch.equal(got[3], want[3])
+    assert 0 < int(got[3].sum()) < int((got[0] >= 0).sum())  # both outcomes occur
+    for a, b in zip(got[:3], plain):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
+
+
+def test_filtered_tiered_and_layout_paths_on_the_card(dev):
+    """Filtered search launches the filter variant; the host rescore tier
+    equals the device tier bitwise, and the layout pass equals the plain
+    index bitwise (dense visited), on the card; the labeled dynamic index
+    at tier="host" with a layout equals the device tier through insert,
+    delete and compact."""
+    g = torch.Generator(dev).manual_seed(8)
+    x = synthetic.make_preset(g, "sift-like", 5000)
+    queries = synthetic.queries_from(g, x, 200)
+    cfg = GRNNDConfig(s=12, r=24, t1=3, t2=3, pairs_per_vertex=24)
+    pool = build_graph(x[:4500], cfg, draws=Draws(6, dev), device=dev)
+    store = encode(x[:4500], "int8")
+    labels = torch.randint(0, 40, (5000,), generator=g, device=dev)
+    lstore = encode_labels(labels[:4500], 40)
+    fw = random_query_filters(g, 200, 40, 0.1)
+    kw = dict(k=10, ef=48, labels=lstore, filter=fw, device=dev)
+    ops.reset_launch_counts()
+    dev_tier = search(store, pool.ids, queries, rescore=x[:4500], **kw)
+    assert ops.launch_counts().get("search_expand/int8+filter", 0) > 0
+    host = HostTier(x[:4500])
+    assert host.data.is_pinned() and host.device_bytes() == 0
+    host_tier = search(store, pool.ids, queries, rescore=host, **kw)
+    for a, b in zip(dev_tier, host_tier):
+        assert torch.equal(a, b)
+    assert predicate_fraction(host_tier.ids, fw, lstore.words) == 1.0
+    opt = optimize(store, pool, order="bfs", rescore=x[:4500], labels=lstore, device=dev)
+    for f in (None, fw):
+        plain = search(store, pool.ids, queries, k=10, ef=48, rescore=x[:4500], labels=lstore,
+                       filter=f, device=dev)
+        laid = opt.search(queries, k=10, ef=48, filter=f)
+        for a, b in zip(plain, laid):
+            assert torch.equal(a, b)
+
+    out = []
+    for tier in ("device", "host"):
+        dcfg = DynamicConfig(seed_k=8, seed_ef=48, precision="int8", tier=tier, layout="bfs")
+        idx = DynamicIndex(
+            x[:4500], pool, dcfg, draws=Draws(7, dev), device=dev,
+            vertex_labels=labels[:4500], n_labels=40,
+        )
+        idx.insert(x[4500:], vertex_labels=labels[4500:])
+        idx.delete(torch.arange(0, 5000, 9, device=dev))
+        idx.compact()
+        res = idx.search(queries, k=10, ef=48, filter=fw)
+        out.append(res)
+    assert idx.x.device.type == "cpu" and idx.x.is_pinned()
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert not torch.isin(out[1].ids, torch.arange(0, 5000, 9, device=dev)).any()

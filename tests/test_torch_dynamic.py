@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from repro.core import grnnd as jgrnnd
+from repro.core import labels as JL
 from repro.core import recall as jrecall
 from repro.core import vecstore as jvs
 from repro.core.dynamic import DynamicConfig as JDynamicConfig
@@ -50,6 +51,7 @@ from repro_torch.core import (
     search,
 )
 from repro_torch.core.draws import Draws, RecordedDraws
+from repro_torch.core.labels import filtered_recall_at_k, pack_ids, predicate_fraction
 from repro_torch.core.search import medoid
 from repro_torch.data import synthetic
 from test_torch_grnnd import jax_draws
@@ -410,6 +412,51 @@ def test_static_int8_build_matches_the_reference(corpus):
 
 
 # ---------------------------------------------------------------------------
+# vertex labels and filtered search
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_labeled_index_matches_the_reference(corpus, base_pool, precision):
+    """vertex_labels through construction and insert, label_words(), and
+    filtered search and ground truth in label space, against the reference
+    with its draws injected."""
+    x, q, _ = corpus
+    cfg = _dcfg(precision)
+    vl = np.random.default_rng(7).integers(0, 30, N).astype(np.int32)
+    vl[5] = 31  # a label on the int32 sign bit of word 0
+    jidx = JDynamicIndex(jnp.asarray(x[:N_BASE]), base_pool, _jdcfg(cfg),
+                         vertex_labels=jnp.asarray(vl[:N_BASE]), n_labels=40)
+    b = N - N_BASE
+    draws = localized_draws(jidx._key, [b + b * cfg.seed_k] * cfg.refine_rounds, CFG.r, 16)
+    pool = Pool(torch.tensor(np.asarray(base_pool.ids)), torch.tensor(np.asarray(base_pool.dists)))
+    tidx = DynamicIndex(x[:N_BASE], pool, cfg, draws=draws, device="cpu",
+                        vertex_labels=vl[:N_BASE], n_labels=40)
+    jidx.insert(jnp.asarray(x[N_BASE:]), vertex_labels=jnp.asarray(vl[N_BASE:]))
+    tidx.insert(x[N_BASE:], vertex_labels=vl[N_BASE:])
+    assert tidx.n_labels == jidx.n_labels == 40
+    np.testing.assert_array_equal(tidx.vlabels.numpy(), jidx.vlabels)
+    np.testing.assert_array_equal(tidx.label_words().numpy(), np.asarray(jidx.label_words()))
+    fw = np.asarray(JL.random_query_filters(jax.random.PRNGKey(8), q.shape[0], 40, 0.2))
+    want = jidx.search(jnp.asarray(q), k=K, ef=EF, filter=fw)
+    got = tidx.search(q, k=K, ef=EF, filter=fw)
+    assert _query_match(got.ids, want.ids) >= QUERY_MATCH
+    # labels are rows of x here: every returned row carries an allowed label
+    vw = pack_ids(vl, 40)
+    assert predicate_fraction(got.ids, torch.from_numpy(fw), vw) == 1.0
+    jgt, tgt = jidx.exact_knn(jnp.asarray(q), K, filter=fw), tidx.exact_knn(q, K, filter=fw)
+    np.testing.assert_array_equal(tgt.numpy() < 0, np.asarray(jgt) < 0)
+    assert filtered_recall_at_k(tgt, np.asarray(jgt)) >= 0.995
+    assert filtered_recall_at_k(got.ids, tgt) >= 0.85
+    # an unlabeled batch is searchable unfiltered and matched by no predicate
+    tidx.draws = Draws(9, "cpu")  # past the recorded rounds
+    new = tidx.insert(x[:20] + 0.01)
+    assert (tidx.vlabels[tidx.size - 20 : tidx.size] == -1).all()
+    res = tidx.search(q, k=K, ef=EF, filter=fw)
+    assert not torch.isin(res.ids, new).any()
+
+
+# ---------------------------------------------------------------------------
 # the draws seam and what is not ported
 # ---------------------------------------------------------------------------
 
@@ -435,24 +482,27 @@ def test_localized_pairs_seam():
 def test_what_is_not_ported_raises(corpus, base_pool):
     x = corpus[0][:N_BASE]
     pool = Pool(torch.tensor(np.asarray(base_pool.ids)), torch.tensor(np.asarray(base_pool.dists)))
-    for kw, item in (
-        (dict(cfg=DynamicConfig(tier="host", precision="int8")), "A.7"),
-        (dict(cfg=DynamicConfig(layout="bfs")), "A.9"),
-        (dict(mesh=object()), "A.10"),
-        (dict(vertex_labels=np.zeros(N_BASE, np.int32)), "A.8"),
+    # mesh= and corpus_search are the parts still to port
+    with pytest.raises(NotImplementedError, match="A.10"):
+        DynamicIndex(x, pool, device="cpu", mesh=object())
+    # tier="host", layout= and vertex_labels= are ported; misuse raises
+    for kw, msg in (
+        (dict(cfg=DynamicConfig(tier="host")), "quantized traversal tier"),
+        (dict(cfg=DynamicConfig(tier="disk", precision="int8")), "tier"),
+        (dict(cfg=DynamicConfig(layout="random")), "layout"),
+        (dict(n_labels=4), "n_labels without vertex_labels"),
+        (dict(cfg=DynamicConfig(precision="fp16")), "precision"),
     ):
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=msg):
             DynamicIndex(x, pool, device="cpu", **kw)
-    with pytest.raises(ValueError, match="precision"):
-        DynamicIndex(x, pool, DynamicConfig(precision="fp16"), device="cpu")
     idx = DynamicIndex(x, pool, device="cpu")
-    for call, item in (
-        (lambda: idx.search(x[:2], filter=np.zeros(2, np.int32)), "A.8"),
-        (lambda: idx.exact_knn(x[:2], 3, filter=np.zeros(2, np.int32)), "A.8"),
-        (lambda: idx.insert(x[:2], vertex_labels=np.zeros(2, np.int32)), "A.8"),
-        (lambda: idx.label_words(), "A.8"),
-        (lambda: idx.optimize_layout("bfs"), "A.9"),
-        (lambda: idx.corpus_search(x[:2], 2), "A.11"),
+    with pytest.raises(NotImplementedError, match="A.11"):
+        idx.corpus_search(x[:2], 2)
+    for call in (
+        lambda: idx.search(x[:2], filter=np.zeros(2, np.int32)),
+        lambda: idx.exact_knn(x[:2], 3, filter=np.zeros(2, np.int32)),
+        lambda: idx.insert(x[:2], vertex_labels=np.zeros(2, np.int32)),
+        lambda: idx.label_words(),
     ):
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match="without vertex labels"):
             call()

@@ -386,8 +386,9 @@ def test_ops_reads_stores_and_the_mask():
     with ops.backend("ref"):
         assert torch.equal(ops.gather_sqdist(store, ni, ni), torch.zeros(50))
     assert ops.launch_counts() == before  # the plain versions launch nothing
+    # the filter operands are ported; one of them without the other raises
     for fn in (ops.search_expand, ref.search_expand_ref):
-        with pytest.raises(NotImplementedError, match="A.8"):
+        with pytest.raises(ValueError, match="both vwords and fwords"):
             fn(store if fn is ops.search_expand else x, x[:4], ids[:4], table, vwords=table)
 
 

@@ -103,15 +103,19 @@ def test_table_insert_equals_reference_exactly(h):
 
 def test_search_rejects_what_is_not_ported(graph):
     _, _, _, tx, tpool, tq = graph
-    for kw in ("labels", "filter", "ids_map"):
-        with pytest.raises(NotImplementedError, match=kw):
-            search(tx, tpool.ids, tq, device="cpu", **{kw: object()})
-    # valid= and rescore= are ported: an all-live mask and a rescore against
-    # the fp32 traversal tier itself (the same distance formula on the CPU)
-    # change no id and no distance
+    # every option is ported; a filter without its label store still raises
+    with pytest.raises(ValueError, match="label store"):
+        search(tx, tpool.ids, tq, device="cpu", filter=np.zeros(tq.shape[0], np.int32))
+    # valid=, rescore=, labels= alone and an identity ids_map change no id
+    # and no distance: an all-live mask, a rescore against the fp32
+    # traversal tier itself (the same distance formula on the CPU)
     plain = search(tx, tpool.ids, tq, device="cpu")
     live = torch.ones(tx.shape[0], dtype=torch.bool)
-    both = search(tx, tpool.ids, tq, device="cpu", valid=live, rescore=tx)
+    ident = torch.arange(tx.shape[0], dtype=torch.int32)
+    words = torch.zeros((tx.shape[0], 1), dtype=torch.int32)
+    both = search(
+        tx, tpool.ids, tq, device="cpu", valid=live, rescore=tx, labels=words, ids_map=ident
+    )
     assert torch.equal(plain.ids, both.ids) and torch.equal(plain.dists, both.dists)
     with pytest.raises(ValueError):
         search(tx, tpool.ids, tq, k=10, ef=8, device="cpu")
