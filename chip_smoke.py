@@ -13,7 +13,9 @@ Phases, each printing its own lines with seconds:
      label-filter variant, against its plain PyTorch version on the same CUDA inputs, at
      the shapes the SIFT1M-shaped paths give it, with kernel / plain /
      library times and the least time the card could take (bytes over
-     3.35 TB/s or fp32 operations over 67 TFLOP/s);
+     3.35 TB/s or fp32 operations over 67 TFLOP/s); `topr_merge` also at the
+     beam merges' shapes (W = 112, 176, 560), and `rng_round` with the
+     build's locality order, whose outputs must equal bitwise those without;
   3. parity at n = 100,000: one fp32 build and one int8 build (searched with
      an fp32 rescore) through the kernels, each again through
      `ops.backend("ref")` with the same draws; recall@10 at ef = 64 over
@@ -48,10 +50,11 @@ Phases, each printing its own lines with seconds:
      search with the device fp32 tier as `rescore`, delete 100,000 labels,
      `compact()` (which re-runs the layout), search filtered again: no
      deleted label, predicate fraction 1.0, no rescore byte on the card;
-  5. where the time goes: torch.profiler over one propagation round, one
-     search, one insert batch and one dynamic search, the static search
-     with a larger visited table and with the dense one, and the share of
-     true 10-NN the built pools hold.
+  5. where the time goes: torch.profiler over one propagation round (with
+     the build's locality order), one search, one insert batch and one
+     dynamic search; `rng_round` on the built pool with and without the
+     order; the static search with a larger visited table and with the
+     dense one, and the share of true 10-NN the built pools hold.
 
 Each path (4, 4b, 4c, 4d's filtered and layout paths, 4e) runs with the
 launch counts set to 0 just before it and read just after; every kernel it
@@ -85,6 +88,7 @@ from repro_torch.core import (  # noqa: E402
     filtered_brute_force,
     filtered_recall_at_k,
     init_random,
+    locality_order,
     optimize,
     overfetch_ef,
     predicate_fraction,
@@ -163,6 +167,10 @@ TIERED_KERNELS = (
 ROW_PATH = {**dict.fromkeys(MAIN_KERNELS, "main"), **dict.fromkeys(BF16_KERNELS, "bf16")}
 ROW_PATH.update(dict.fromkeys(DYN_KERNELS[:4], "dynamic"))
 ROW_PATH.update({"search_expand+filter": "filtered", "search_expand/int8+valid+filter": "tiered"})
+# the beam merges at the search shapes: rows that share the `topr_merge`
+# launch counter (their rows say so under "launches_of")
+BEAM_MERGES = ((64, "main"), (128, "main"), (512, "filtered"))  # (ef, path), W = ef + R
+ROW_PATH.update({f"topr_merge[W={ef + SIFT1M.build.r}]": path for ef, path in BEAM_MERGES})
 
 
 def log(msg: str) -> None:
@@ -280,6 +288,7 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
     # 512-slot visited table per query that already holds R ids
     q = queries.shape[0]
     g = torch.Generator(dev).manual_seed(SEED + 5)
+    gm = torch.Generator(dev).manual_seed(SEED + 7)  # the beam-merge rows' inputs
     sel = torch.randint(0, n, (q,), generator=g, device=dev)
     nbrs = pool.ids[sel].contiguous()
     table = torch.full((q, 512), -1, dtype=torch.int32, device=dev)
@@ -293,7 +302,9 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
 
     rows = []
 
-    def measure(name, source, replaces, kernel, plain, check, nbytes, nops, library, reps):
+    def measure(
+        name, source, replaces, kernel, plain, check, nbytes, nops, library, reps, launches_of=None
+    ):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err, extra = check(got, want)
@@ -316,6 +327,7 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
                 "bound_ms": b_ms,
                 "bound_by": b_by,
                 "library_ms": lib_ms,
+                **({"launches_of": launches_of} if launches_of else {}),
             }
         )
         lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
@@ -341,6 +353,17 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         None,
         10,
     )
+    # the build's locality order: a schedule, so the outputs must not move
+    order, order_s = timed(lambda: locality_order(x))
+    plain_order = rng_round(x, pool.ids, pool.dists, si, sj)
+    if not _same(rng_round(x, pool.ids, pool.dists, si, sj, order=order), plain_order):
+        raise AssertionError("rng_round with the locality order differs from without it")
+    log(
+        f"[kernels] rng_round with the locality order ({order_s:.3f}s to compute): "
+        f"{cuda_ms(lambda: rng_round(x, pool.ids, pool.dists, si, sj, order=order), 10):.3f} ms, "
+        "dst / src / dij / kill bitwise equal to the launch without it"
+    )
+    del order, plain_order
 
     def merge_check(got, want):
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
@@ -360,6 +383,36 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         None,
         10,
     )
+
+    # the beam merges of the search paths (W = ef + R): a sorted beam of ef
+    # candidates, then the R neighbors of one expansion, a quarter of them
+    # repeats of beam ids and a third stale (-1, +inf)
+    for ef, _ in BEAM_MERGES:
+        bi = torch.randint(0, n, (q, ef), generator=gm, device=dev, dtype=torch.int32)
+        bd = torch.rand((q, ef), generator=gm, device=dev).sort(1).values
+        ei = torch.randint(0, n, (q, r), generator=gm, device=dev, dtype=torch.int32)
+        rep = torch.rand((q, r), generator=gm, device=dev) < 0.25
+        ei = torch.where(
+            rep, bi.gather(1, torch.randint(0, ef, (q, r), generator=gm, device=dev)), ei
+        )
+        ei = torch.where(torch.rand((q, r), generator=gm, device=dev) < 0.3, -1, ei)
+        ed = torch.where(ei >= 0, torch.rand((q, r), generator=gm, device=dev), torch.inf)
+        mi, md = torch.cat([bi, ei], 1).contiguous(), torch.cat([bd, ed], 1).contiguous()
+        wb = ef + r
+        measure(
+            f"topr_merge[W={wb}]",
+            "src/repro_torch/kernels/csrc/topr_merge.cu",
+            "src/repro/kernels/topr_merge.py:58",
+            lambda mi=mi, md=md, ef=ef: topr_merge(mi, md, ef),
+            lambda mi=mi, md=md, ef=ef: ref.topr_merge_ref(mi, md, ef),
+            merge_check,
+            q * wb * 8 + q * ef * 8,
+            q * wb * math.log2(wb),
+            None,
+            20,
+            launches_of="topr_merge",
+        )
+        del bi, bd, ei, ed, mi, md
 
     def expand_check(got, want):
         if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])):
@@ -625,7 +678,7 @@ def path_counts(label: str, counts: dict, needed, rows) -> None:
         raise AssertionError(f"kernels never launched on the {label} path: {missing}")
     for row in rows:
         if ROW_PATH[row["name"]] == label:
-            row["launches"] = counts[row["name"]]
+            row["launches"] = counts[row.get("launches_of", row["name"])]
 
 
 def phase_main(x, queries, cfg, rows):
@@ -633,10 +686,14 @@ def phase_main(x, queries, cfg, rows):
     dev = x.device
     n, k = x.shape[0], 10
     torch.cuda.reset_peak_memory_stats(dev)
+    order_s = timed(lambda: locality_order(x))[1]  # what the build spends on its schedule
     ops.reset_launch_counts()
     pool, build_s = timed(lambda: build_graph(x, cfg, draws=Draws(SEED + 2, dev), device=dev))
     degree = float(pool.degree().float().mean())
-    log(f"[main] build n={n} d={x.shape[1]} {cfg}: {build_s:.2f}s, mean degree {degree:.2f}")
+    log(
+        f"[main] build n={n} d={x.shape[1]} {cfg}: {build_s:.2f}s (of which the locality "
+        f"order {order_s:.3f}s), mean degree {degree:.2f}"
+    )
     truth, gt_s = timed(lambda: brute_force_knn(x, queries, k, device=dev))
     log(f"[main] ground truth for {queries.shape[0]} queries: {gt_s:.2f}s")
     recalls = {}
@@ -1018,7 +1075,28 @@ def phase_profile(x, queries, pool, truth, cfg, idx) -> None:
     t0 = time.perf_counter()
     dev = x.device
     draws = Draws(SEED + 3, dev)
-    profiled("one propagation round, n=1M", lambda: update_round(x, pool, draws, cfg, 0, 0))
+    order = locality_order(x)
+    profiled(
+        "one propagation round, n=1M, locality order",
+        lambda: update_round(x, pool, draws, cfg, 0, 0, order),
+    )
+    # the schedule on the built pool, where neighbours' pools share rows
+    n, r, p = x.shape[0], cfg.r, cfg.pairs_per_vertex
+    si, sj = (a.to(dev) for a in draws.slot_pairs(0, 0, None, n, r, p))
+    ms = [
+        cuda_ms(lambda o=o: rng_round(x, pool.ids, pool.dists, si, sj, order=o), 10)
+        for o in (None, order, order, None)
+    ]
+    # the same round with every id folded into 20,000 rows (10 MB, held in
+    # L2): what the kernel takes when no row comes from device memory
+    folded = torch.where(pool.ids >= 0, pool.ids % 20_000, -1)
+    l2_ms = cuda_ms(lambda: rng_round(x, folded, pool.dists, si, sj), 10)
+    log(
+        "[profile] rng_round on the built pool, order none / locality / locality / none: "
+        + " / ".join(f"{v:.3f}" for v in ms)
+        + f" ms; ids folded into 20,000 L2-resident rows: {l2_ms:.3f} ms"
+    )
+    del si, sj, order, folded
     profiled(
         "search ef=64 hashed, 10,000 queries",
         lambda: search(x, pool.ids, queries, k=10, ef=64, visited="hashed", device=dev),

@@ -4,11 +4,15 @@ Replaces the TPU kernel `src/repro/kernels/topr_merge.py::topr_merge_pallas`.
 CUDA tensors run the hand-written kernel of `csrc/topr_merge.cu`; CPU tensors
 run `ref.topr_merge_ref`.
 
-Bound: the O(W^2) shared-memory comparisons per row (W = 96 in the build,
-ef + R in search), not the B*W*8 bytes in and B*r*8 out. Design: one block
-per row; an entry's output slot is its rank in (distance, position) order
-among the deduplicated survivors, so each slot is written once and the
-integers match the oracle's stable sort exactly.
+Bound: the B*W*8 bytes in and B*r*8 out. The first port ranked each entry
+by O(W^2) shared-memory comparisons and was bound by them; this kernel
+sorts instead. A group of W/8 threads (rounded up to a power of two) holds
+a row in registers, 8 entries a thread; a table in shared memory keeps the
+first position of each id (the dedup); the live keys (distance bits,
+position) of sparse rows are packed first, and a bitonic sort in registers
+and warp shuffles, through shared memory only for rows wider than 256,
+gives the oracle's stable order exactly. Each output slot is written once.
+The 64-bit integer compares of the sort, not the bytes, bound it on an H100.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from repro_torch.kernels import _build, ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGS = (_P, _P, _L, _I, _I, _P, _P, _P)
-_MAX_W = 48 * 1024 // 8  # the row must fit the default 48 KB of shared memory
+_MAX_W = 8 * 1024  # 8 entries a thread, at most 1024 threads a row
 
 
 def topr_merge(ids: torch.Tensor, dists: torch.Tensor, r: int):

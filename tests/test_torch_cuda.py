@@ -10,7 +10,13 @@ storage variants (bf16, int8 with scale/offset) and tombstone mask of the
 dynamic path at D = 33 (no 16-byte row loads) and D = 128, with N off the
 block sizes, and the label filter of search_expand at W = 1, 3, 4 and 5
 words (int4 loads only at W = 4) and R = 13 (not a multiple of a lane
-group), with labels on the int32 sign bit. Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
+group), with labels on the int32 sign bit; the adversarial merge rows of
+`merge_cases` at W = 1 ... 560 with r below and above W (rows of 1 to 128
+lanes, packed and unpacked); and rng_round
+with a vertex order (a random permutation and `locality_order`), whose four
+outputs must equal bitwise those without one, with two row buffers and with
+one (D = 960), with rows copied asynchronously (D = 128) and through
+registers (D = 33). Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
 summation order; the dequant itself is bitwise the plain version's);
 pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition cancellation);
 topr_merge and every integer output exactly, except rng_round's hit test
@@ -34,6 +40,7 @@ from repro_torch.core import (
     brute_force_knn,
     build_graph,
     encode,
+    locality_order,
     recall_at_k,
     search,
 )
@@ -75,6 +82,36 @@ def _store(x, precision):
 
 RUNGS = ("fp32", "bf16", "int8")
 
+# widths of the adversarial merge rows: tiny, rows of 4 and 8 lanes, the
+# build's 96, the ef-64 / ef-128 beam merges' 112 / 176, past one warp's
+# 128, the filtered 560
+MERGE_WIDTHS = (1, 5, 31, 48, 96, 112, 129, 176, 560)
+
+
+def merge_cases(w: int, seed: int = 0):
+    """(10, W) int32 ids / fp32 dists of adversarial merge rows, from numpy:
+    0: one id in every slot; 1: each id again later at a lower distance
+    (the first position must win); 2: two distance levels only, so ties
+    straddle any r-th slot; 3: all -1; 4: -1 ids with finite distances;
+    5: ids near 2^31 - 1, repeated; 6: +inf distances on live ids;
+    7-9: random ids with repeats and exact ties."""
+    rng = np.random.default_rng(seed + w)
+    ids = rng.integers(0, max(2, w // 2), (10, w)).astype(np.int32)
+    dists = rng.random((10, w)).astype(np.float32)
+    dists[:, ::3] = np.round(dists[:, ::3], 1)
+    pos = np.arange(w, dtype=np.int32)
+    h = (w + 1) // 2
+    ids[0] = 7
+    ids[1] = np.concatenate([pos[:h], pos[: w - h]])
+    dists[1, h:] = dists[1, : w - h] * 0.5
+    ids[2], dists[2] = pos, np.where(pos % 3 == 0, 0.25, 0.5)
+    ids[3] = -1
+    ids[4] = np.where(pos % 2 == 0, -1, pos)
+    ids[5] = 2**31 - 1 - rng.integers(0, 4, w)
+    dists[6, rng.random(w) < 0.3] = np.inf
+    ids[7, ::4] = -1
+    return ids, dists
+
 
 @pytest.mark.parametrize(
     "m,n,d", [(1, 1000, 128), (70, 130, 33), (1024, 4096, 128), (5, 64, 960)]
@@ -109,6 +146,40 @@ def test_topr_merge_kernel_is_exact(dev, b, w, r):
     gi, gd = _launched("topr_merge", lambda: topr_merge(ids, dists, r))
     wi, wd = ref.topr_merge_ref(ids, dists, r)
     assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("w", MERGE_WIDTHS)
+@pytest.mark.parametrize("wider", [False, True])
+def test_topr_merge_kernel_adversarial_rows(dev, w, wider):
+    r = w + 7 if wider else max(1, w // 2)
+    ids, dists = (torch.from_numpy(a).to(dev) for a in merge_cases(w))
+    gi, gd = _launched("topr_merge", lambda: topr_merge(ids, dists, r))
+    wi, wd = ref.topr_merge_ref(ids, dists, r)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+@pytest.mark.parametrize("n,d,c,r,p", [(6000, 128, 5000, 48, 48), (900, 33, 800, 12, 16),
+                                       (1200, 960, 1000, 48, 48)])
+def test_rng_round_kernel_is_the_same_in_any_order(dev, precision, n, d, c, r, p):
+    g = torch.Generator(dev).manual_seed(n + d)
+    x = synthetic.vector_dataset(g, n, d)
+    data, scale, offset = _store(x, precision)
+    ids = torch.randint(0, n, (c, r), generator=g, device=dev, dtype=torch.int32)
+    ids[torch.rand((c, r), generator=g, device=dev) < 0.2] = -1
+    dists = torch.rand((c, r), generator=g, device=dev) * 2 * d
+    dists = torch.where(ids >= 0, dists, torch.inf)
+    si = torch.randint(0, r, (c, p), generator=g, device=dev, dtype=torch.int32)
+    sj = torch.randint(0, r, (c, p), generator=g, device=dev, dtype=torch.int32)
+    args = (data, ids, dists, si, sj, scale, offset)
+    plain = rng_round(*args)
+    want = ref.rng_round_ref(*args)
+    torch.testing.assert_close(plain[2], want[2], rtol=RTOL, atol=ATOL)
+    assert torch.equal(plain[1], want[1])
+    perm = torch.randperm(c, generator=g, device=dev).to(torch.int32)
+    for order in (perm, locality_order(x[:c]), torch.arange(c, dtype=torch.int32, device=dev)):
+        got = rng_round(*args, order=order)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
 
 
 @pytest.mark.parametrize("n,d,c,r,p", [(5000, 128, 3000, 48, 48), (700, 33, 700, 12, 16)])

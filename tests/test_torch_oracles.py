@@ -38,6 +38,7 @@ from repro_torch.kernels.pairwise_l2 import pairwise_sqdist, rowwise_sqdist
 from repro_torch.kernels.rng_round import rng_round
 from repro_torch.kernels.search_expand import search_expand
 from repro_torch.kernels.topr_merge import topr_merge
+from test_torch_cuda import MERGE_WIDTHS, merge_cases
 
 # the suite runs in parallel workers: one intra-op thread each keeps torch
 # from oversubscribing the cores the JAX tests share
@@ -146,6 +147,20 @@ def test_topr_merge_ref_equals_jax_oracle_and_pallas(b, w, r):
     for wi, wd in wants:
         np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
         np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+
+
+@pytest.mark.parametrize("w", MERGE_WIDTHS)
+@pytest.mark.parametrize("wider", [False, True])
+def test_topr_merge_adversarial_rows_equal_jax_oracle(w, wider):
+    """All-duplicate rows, a repeat at a lower distance, ties across the
+    r-th slot, -1 rows and slots, ids near 2^31 - 1: exactly the oracle's."""
+    r = w + 7 if wider else max(1, w // 2)
+    ids, dists = merge_cases(w)
+    gi, gd = topr_merge(_t(ids), _t(dists), r)
+    wi, wd = _topr_merge_jref(ids, dists, r)
+    assert gi.shape == (ids.shape[0], r)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
 
 
 def _expand_inputs(seed, n, d, q, r, h):
