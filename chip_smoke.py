@@ -14,8 +14,7 @@ Phases, each printing its own lines with seconds:
      the shapes the SIFT1M-shaped paths give it, with kernel / plain /
      library times and the least time the card could take (bytes over
      3.35 TB/s or fp32 operations over 67 TFLOP/s); `topr_merge` also at the
-     beam merges' shapes (W = 112, 176, 560), and `rng_round` with the
-     build's locality order, whose outputs must equal bitwise those without;
+     beam merges' shapes (W = 112, 176, 448, 560);
   3. parity at n = 100,000: one fp32 build and one int8 build (searched with
      an fp32 rescore) through the kernels, each again through
      `ops.backend("ref")` with the same draws; recall@10 at ef = 64 over
@@ -50,10 +49,9 @@ Phases, each printing its own lines with seconds:
      search with the device fp32 tier as `rescore`, delete 100,000 labels,
      `compact()` (which re-runs the layout), search filtered again: no
      deleted label, predicate fraction 1.0, no rescore byte on the card;
-  5. where the time goes: torch.profiler over one propagation round (with
-     the build's locality order), one search, one insert batch and one
-     dynamic search; `rng_round` on the built pool with and without the
-     order; the static search with a larger visited table and with the
+  5. where the time goes: torch.profiler over one propagation round, one
+     search, one insert batch and one dynamic search; `rng_round` on the
+     built pool and with its ids folded into L2-resident rows; the static search with a larger visited table and with the
      dense one, and the share of true 10-NN the built pools hold.
 
 Each path (4, 4b, 4c, 4d's filtered and layout paths, 4e) runs with the
@@ -88,7 +86,6 @@ from repro_torch.core import (  # noqa: E402
     filtered_brute_force,
     filtered_recall_at_k,
     init_random,
-    locality_order,
     optimize,
     overfetch_ef,
     predicate_fraction,
@@ -169,7 +166,7 @@ ROW_PATH.update(dict.fromkeys(DYN_KERNELS[:4], "dynamic"))
 ROW_PATH.update({"search_expand+filter": "filtered", "search_expand/int8+valid+filter": "tiered"})
 # the beam merges at the search shapes: rows that share the `topr_merge`
 # launch counter (their rows say so under "launches_of")
-BEAM_MERGES = ((64, "main"), (128, "main"), (512, "filtered"))  # (ef, path), W = ef + R
+BEAM_MERGES = ((64, "main"), (128, "main"), (400, "filtered"), (512, "filtered"))  # (ef, path), W = ef + R
 ROW_PATH.update({f"topr_merge[W={ef + SIFT1M.build.r}]": path for ef, path in BEAM_MERGES})
 
 
@@ -353,17 +350,6 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         None,
         10,
     )
-    # the build's locality order: a schedule, so the outputs must not move
-    order, order_s = timed(lambda: locality_order(x))
-    plain_order = rng_round(x, pool.ids, pool.dists, si, sj)
-    if not _same(rng_round(x, pool.ids, pool.dists, si, sj, order=order), plain_order):
-        raise AssertionError("rng_round with the locality order differs from without it")
-    log(
-        f"[kernels] rng_round with the locality order ({order_s:.3f}s to compute): "
-        f"{cuda_ms(lambda: rng_round(x, pool.ids, pool.dists, si, sj, order=order), 10):.3f} ms, "
-        "dst / src / dij / kill bitwise equal to the launch without it"
-    )
-    del order, plain_order
 
     def merge_check(got, want):
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
@@ -686,14 +672,10 @@ def phase_main(x, queries, cfg, rows):
     dev = x.device
     n, k = x.shape[0], 10
     torch.cuda.reset_peak_memory_stats(dev)
-    order_s = timed(lambda: locality_order(x))[1]  # what the build spends on its schedule
     ops.reset_launch_counts()
     pool, build_s = timed(lambda: build_graph(x, cfg, draws=Draws(SEED + 2, dev), device=dev))
     degree = float(pool.degree().float().mean())
-    log(
-        f"[main] build n={n} d={x.shape[1]} {cfg}: {build_s:.2f}s (of which the locality "
-        f"order {order_s:.3f}s), mean degree {degree:.2f}"
-    )
+    log(f"[main] build n={n} d={x.shape[1]} {cfg}: {build_s:.2f}s, mean degree {degree:.2f}")
     truth, gt_s = timed(lambda: brute_force_knn(x, queries, k, device=dev))
     log(f"[main] ground truth for {queries.shape[0]} queries: {gt_s:.2f}s")
     recalls = {}
@@ -1075,28 +1057,22 @@ def phase_profile(x, queries, pool, truth, cfg, idx) -> None:
     t0 = time.perf_counter()
     dev = x.device
     draws = Draws(SEED + 3, dev)
-    order = locality_order(x)
-    profiled(
-        "one propagation round, n=1M, locality order",
-        lambda: update_round(x, pool, draws, cfg, 0, 0, order),
-    )
-    # the schedule on the built pool, where neighbours' pools share rows
+    profiled("one propagation round, n=1M", lambda: update_round(x, pool, draws, cfg, 0, 0))
+    # rng_round on the built pool, whose rows come from device memory, and
+    # with every id folded into 20,000 rows (10 MB, held in L2): what the
+    # kernel takes when no row comes from device memory
     n, r, p = x.shape[0], cfg.r, cfg.pairs_per_vertex
     si, sj = (a.to(dev) for a in draws.slot_pairs(0, 0, None, n, r, p))
-    ms = [
-        cuda_ms(lambda o=o: rng_round(x, pool.ids, pool.dists, si, sj, order=o), 10)
-        for o in (None, order, order, None)
-    ]
-    # the same round with every id folded into 20,000 rows (10 MB, held in
-    # L2): what the kernel takes when no row comes from device memory
     folded = torch.where(pool.ids >= 0, pool.ids % 20_000, -1)
-    l2_ms = cuda_ms(lambda: rng_round(x, folded, pool.dists, si, sj), 10)
+    ms = [
+        cuda_ms(lambda ids=ids: rng_round(x, ids, pool.dists, si, sj), 10)
+        for ids in (pool.ids, folded, folded, pool.ids)
+    ]
     log(
-        "[profile] rng_round on the built pool, order none / locality / locality / none: "
-        + " / ".join(f"{v:.3f}" for v in ms)
-        + f" ms; ids folded into 20,000 L2-resident rows: {l2_ms:.3f} ms"
+        "[profile] rng_round on the built pool / folded into 20,000 L2-resident rows / "
+        "folded / built: " + " / ".join(f"{v:.3f}" for v in ms) + " ms"
     )
-    del si, sj, order, folded
+    del si, sj, folded
     profiled(
         "search ef=64 hashed, 10,000 queries",
         lambda: search(x, pool.ids, queries, k=10, ef=64, visited="hashed", device=dev),

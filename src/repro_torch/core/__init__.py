@@ -6,7 +6,6 @@ from repro_torch.core.grnnd import (
     GRNNDConfig,
     build_graph,
     build_graph_with_stats,
-    locality_order,
     reverse_edge_round,
     update_round,
 )
@@ -53,7 +52,6 @@ __all__ = [
     "GRNNDConfig",
     "build_graph",
     "build_graph_with_stats",
-    "locality_order",
     "update_round",
     "reverse_edge_round",
     "LabelStore",

@@ -13,9 +13,7 @@ As in the JAX package's `core/grnnd.py`:
 
 All pair evaluations of a round see the same pool snapshot; kills are
 OR-combined at the end of the round. Every random number comes from a
-`core.draws.Draws`. The round kernel takes the vertices in a locality order
-computed once per build (`locality_order`), a schedule that changes no
-output. The dataset may be a `core.vecstore.VectorStore`: every
+`core.draws.Draws`. The dataset may be a `core.vecstore.VectorStore`: every
 distance of the build is then taken on storage-precision rows, dequantized
 in the kernels, with fp32 accumulation. The sorted-order ablation
 (ascending / descending) is not ported.
@@ -67,45 +65,18 @@ def _pair_requests_chunk(x, ids_c, dists_c, si, sj):
     return redirect, killed
 
 
-def locality_order(x, n_pivots: int = 256, seed: int = 0, block: int = 1 << 17) -> torch.Tensor:
-    """The round kernel's vertex schedule: the N vertices grouped by their
-    nearest of `n_pivots` pivot rows of `x` (drawn with a seeded CPU
-    generator, so the order is the same on every device), in id order
-    within a group. (N,) int32 permutation of 0..N-1 on `x`'s device.
-
-    The kernel's blocks take a window of this order at a time; vertices
-    near one another share pool rows, which then come from L2. The round's
-    outputs do not depend on it. One `ops.pairwise_sqdist` per `block` rows.
-    """
-    n = VS.nrows(x)
-    g = torch.Generator().manual_seed(seed)
-    pivots = VS.take(x, torch.randint(0, n, (min(n_pivots, n),), generator=g).to(x.device))
-    near = torch.empty(n, dtype=torch.int64, device=x.device)
-    for lo in range(0, n, block):
-        rows = x[lo : lo + block] if isinstance(x, torch.Tensor) else x._replace(
-            data=x.data[lo : lo + block]
-        )
-        near[lo : lo + block] = ops.pairwise_sqdist(rows, pivots).argmin(1)
-    return torch.sort(near, stable=True).indices.to(torch.int32)
-
-
-def _chunked(cfg: GRNNDConfig, n: int) -> bool:
-    """Whether a round runs chunk by chunk: exactly when the JAX reference
-    chunks (chunk_size divides N and is smaller than N), so that its
-    per-chunk draws line up."""
-    chunk = cfg.chunk_size
-    return chunk is not None and n % chunk == 0 and chunk < n
-
-
-def _round_pair_matrices(x, pool: P.Pool, draws, cfg: GRNNDConfig, t1: int, t2: int, order):
+def _round_pair_matrices(x, pool: P.Pool, draws, cfg: GRNNDConfig, t1: int, t2: int):
     """Disordered round over all vertices: (dst, src, dij) (N, P) + kill (N, R).
-    `order` schedules the unchunked kernel call; chunks run without one."""
+
+    Chunked exactly when the JAX reference chunks (chunk_size divides N and
+    is smaller than N), so that its per-chunk draws line up.
+    """
     n, r = pool.ids.shape
     p = cfg.pairs_per_vertex
     chunk = cfg.chunk_size
-    if not _chunked(cfg, n):
+    if chunk is None or n % chunk != 0 or chunk >= n:
         si, sj = _sample_slot_pairs(draws, t1, t2, None, n, r, p, x.device)
-        return ops.rng_propagation_round(x, pool.ids, pool.dists, si, sj, order)
+        return ops.rng_propagation_round(x, pool.ids, pool.dists, si, sj)
     outs = []
     for i in range(n // chunk):
         lo, hi = i * chunk, (i + 1) * chunk
@@ -114,18 +85,14 @@ def _round_pair_matrices(x, pool: P.Pool, draws, cfg: GRNNDConfig, t1: int, t2: 
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def update_round(
-    x, pool: P.Pool, draws, cfg: GRNNDConfig, t1: int = 0, t2: int = 0, order=None
-) -> P.Pool:
+def update_round(x, pool: P.Pool, draws, cfg: GRNNDConfig, t1: int = 0, t2: int = 0) -> P.Pool:
     """One UPDATE_NEIGHBORS_PARALLEL round incl. buffer swap (Alg. 4).
 
     (t1, t2) names the round for `draws`. Survivors are per-vertex aligned
-    and merge directly; only the cross-vertex redirects are staged. `order`
-    (`locality_order(x)`, optional) schedules the round kernel and changes
-    no output.
+    and merge directly; only the cross-vertex redirects are staged.
     """
     n = pool.n
-    dst, src, dij, killed = _round_pair_matrices(x, pool, draws, cfg, t1, t2, order)
+    dst, src, dij, killed = _round_pair_matrices(x, pool, draws, cfg, t1, t2)
     staged_i, staged_d = P.stage_request_matrix(dst, src, dij, n, cfg.cap)
     surv_ids = torch.where(killed, -1, pool.ids)
     surv_dists = torch.where(killed, torch.inf, pool.dists)
@@ -160,10 +127,9 @@ def _build(x, cfg: GRNNDConfig, draws, device, stats: list | None) -> P.Pool:
     x = VS.to_device(x, dev)
     draws = draws if draws is not None else Draws(0, dev)
     pool = P.init_random(draws, x, cfg.s, cfg.r)
-    order = None if _chunked(cfg, pool.n) else locality_order(x)
     for t1 in range(cfg.t1):
         for t2 in range(cfg.t2):
-            new_pool = update_round(x, pool, draws, cfg, t1, t2, order)
+            new_pool = update_round(x, pool, draws, cfg, t1, t2)
             if stats is not None:
                 stats.append(
                     {

@@ -22,23 +22,20 @@
 //      On an H100 the round's rate follows the blocks an SM holds, not the
 //      copies in flight, so a block keeps one row buffer: a second one (the
 //      paper's double buffer) halves the blocks and was slower (PERF.md);
-//   3. walks them in an optional `order` (a permutation of the C vertices),
-//      so that with a locality order (core/grnnd.locality_order) the G
-//      vertices in flight share pool rows. Each vertex writes only its own
-//      rows of the outputs, so they are bitwise the same for any order;
-//   4. computes four sampled pairs a warp at once, a group of 8 lanes per
+//   3. computes four sampled pairs a warp at once, a group of 8 lanes per
 //      pair, with the summation and shuffle-reduction order of a warp per
 //      pair (common.cuh::warp_row_sqdist), so dij is bitwise the first
 //      port's; bf16 / int8 quads are dequantized on the read from shared
 //      memory with the plain version's rounded multiply and add (no FMA);
-//   5. stages a vertex's P results and R kill flags in shared memory and
+//   4. stages a vertex's P results and R kill flags in shared memory and
 //      drains them with consecutive threads after the next barrier.
 // The round is then bound by each block's serial path per vertex (the
 // copies' latency and its barriers), about the same whether the rows come
-// from device memory or from L2, so the order does not change its time
-// (PERF.md). A stored row whose bytes are not a multiple of 16 (or an
-// unaligned base) is copied plainly by warp 0 in the same place of the
-// pipeline.
+// from device memory or from L2: a vertex schedule that grouped vertices
+// sharing pool rows, so that their rows stayed in L2, read no faster and
+// was not kept (PERF.md). A stored row whose bytes are not a multiple of 16
+// (or an unaligned base) is copied plainly by warp 0 in the same place of
+// the pipeline.
 #include "common.cuh"
 
 namespace {
@@ -159,8 +156,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
     rng_round_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                      const float* __restrict__ offset, int n, int d, const int* __restrict__ ids,
                      const float* __restrict__ dists, const int* __restrict__ si,
-                     const int* __restrict__ sj, const int* __restrict__ order, long long c, int r,
-                     int p, bool bulk_rows, bool bulk_idx, int* __restrict__ dst,
+                     const int* __restrict__ sj, long long c, int r, int p, bool bulk_rows, bool bulk_idx, int* __restrict__ dst,
                      int* __restrict__ src, float* __restrict__ dij, uint8_t* __restrict__ kill) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(r, p, d, (int)sizeof(T), Q);
@@ -181,7 +177,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
   auto slot = [&](int s) { return min(max(s, 0), r - 1); };
 
   auto vert = [&](long long t) -> int {
-    return t < cv ? (order != nullptr ? __ldg(order + t) : (int)t) : -1;
+    return t < cv ? (int)t : -1;
   };
   // warp 0: the index rows of vertex v -> ring slot k, four bulk copies
   // (or, unaligned, plain copies that the next barrier publishes)
@@ -323,8 +319,8 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 template <typename T, bool Q>
 cudaError_t launch_q(const T* x, const float* scale, const float* offset, int n, int d,
                      const int* ids, const float* dists, const int* si, const int* sj,
-                     const int* order, long long c, int r, int p, int* dst, int* src, float* dij,
-                     uint8_t* kill, cudaStream_t stream) {
+                     long long c, int r, int p, int* dst, int* src, float* dij, uint8_t* kill,
+                     cudaStream_t stream) {
   auto kernel = rng_round_kernel<T, Q>;
   const size_t smem = layout(r, p, d, (int)sizeof(T), Q).total;
   cudaError_t err = allow_smem(kernel, smem);
@@ -341,22 +337,22 @@ cudaError_t launch_q(const T* x, const float* scale, const float* offset, int n,
   const bool bulk_idx = r % 4 == 0 && p % 4 == 0 && aligned_to(ids, 16) &&
                         aligned_to(dists, 16) && aligned_to(si, 16) && aligned_to(sj, 16);
   kernel<<<(unsigned)grid, THREADS, smem, stream>>>(x, scale, offset, n, d, ids, dists, si, sj,
-                                                    order, c, r, p, bulk_rows, bulk_idx, dst, src,
-                                                    dij, kill);
+                                                    c, r, p, bulk_rows, bulk_idx, dst, src, dij,
+                                                    kill);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* xv, const float* scale, const float* offset, int n, int d,
                    const int* ids, const float* dists, const int* si, const int* sj,
-                   const int* order, long long c, int r, int p, int* dst, int* src, float* dij,
-                   uint8_t* kill, cudaStream_t stream) {
+                   long long c, int r, int p, int* dst, int* src, float* dij, uint8_t* kill,
+                   cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   if (scale != nullptr)
-    return launch_q<T, true>(x, scale, offset, n, d, ids, dists, si, sj, order, c, r, p, dst,
-                             src, dij, kill, stream);
-  return launch_q<T, false>(x, scale, offset, n, d, ids, dists, si, sj, order, c, r, p, dst, src,
-                            dij, kill, stream);
+    return launch_q<T, true>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src, dij,
+                             kill, stream);
+  return launch_q<T, false>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src, dij,
+                            kill, stream);
 }
 
 }  // namespace
@@ -368,20 +364,19 @@ extern "C" int rng_round_smem_bytes(int r, int p, int d, int tsize, int q) {
 
 extern "C" int rng_round_launch(const void* x, int dtype, const float* scale, const float* offset,
                                 int n, int d, const int* ids, const float* dists, const int* si,
-                                const int* sj, const int* order, long long c, int r, int p,
-                                int* dst, int* src, float* dij, uint8_t* kill,
-                                cudaStream_t stream) {
+                                const int* sj, long long c, int r, int p, int* dst, int* src,
+                                float* dij, uint8_t* kill, cudaStream_t stream) {
   if (c == 0) return cudaSuccess;
   switch (dtype) {
     case REPRO_F32:
-      return launch<float>(x, scale, offset, n, d, ids, dists, si, sj, order, c, r, p, dst, src,
-                           dij, kill, stream);
+      return launch<float>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src, dij,
+                           kill, stream);
     case REPRO_BF16:
-      return launch<__nv_bfloat16>(x, scale, offset, n, d, ids, dists, si, sj, order, c, r, p,
-                                   dst, src, dij, kill, stream);
+      return launch<__nv_bfloat16>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src,
+                                   dij, kill, stream);
     case REPRO_I8:
-      return launch<int8_t>(x, scale, offset, n, d, ids, dists, si, sj, order, c, r, p, dst, src,
-                            dij, kill, stream);
+      return launch<int8_t>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src, dij,
+                            kill, stream);
     default:
       return cudaErrorInvalidValue;
   }

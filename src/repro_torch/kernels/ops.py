@@ -128,14 +128,12 @@ def search_expand(x, queries, nbrs, table, valid=None, vwords=None, fwords=None)
     return _search_expand(xd, queries, nbrs, table, valid, xs, xo, vwords, fwords)
 
 
-def rng_propagation_round(x, ids, dists, si, sj, order=None):
-    """One disordered propagation round: (dst, src, dij, kill); `x` may be a
-    store. `order` (C,) int32 is the optional vertex schedule of the kernel
-    (`grnnd.locality_order`); the outputs do not depend on it."""
+def rng_propagation_round(x, ids, dists, si, sj):
+    """One disordered propagation round: (dst, src, dij, kill); `x` may be a store."""
     xd, xs, xo = parts(x)
     if _BACKEND == "ref":
-        return ref.rng_round_ref(xd, ids, dists, si, sj, xs, xo, order)
-    return _rng_round(xd, ids, dists, si, sj, xs, xo, order)
+        return ref.rng_round_ref(xd, ids, dists, si, sj, xs, xo)
+    return _rng_round(xd, ids, dists, si, sj, xs, xo)
 
 
 def gather_sqdist(x, ni, nj) -> torch.Tensor:

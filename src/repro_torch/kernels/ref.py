@@ -108,7 +108,7 @@ def gather_sqdist_ref(x, ni, nj, scale=None, offset=None) -> torch.Tensor:
     return out
 
 
-def rng_round_ref(x, ids, dists, si, sj, scale=None, offset=None, order=None):
+def rng_round_ref(x, ids, dists, si, sj, scale=None, offset=None):
     """One disordered RNG propagation round over a (C, R) pool chunk.
 
     For each sampled slot pair (si, sj) of a vertex: dij = |x[ni] - x[nj]|^2;
@@ -116,11 +116,8 @@ def rng_round_ref(x, ids, dists, si, sj, scale=None, offset=None, order=None):
     Returns (dst (C,P) int32: the closer id or -1 on a miss, src (C,P)
     int32: the farther id, dij (C,P) fp32, kill (C,R) bool: OR of hits on
     the farther endpoint's slot). `x` holds stored rows, dequantized with
-    the optional (D,) `scale`/`offset`. `order` is the kernel's schedule (the
-    order in which it takes the vertices); the outputs do not depend on it,
-    so it is ignored here.
+    the optional (D,) `scale`/`offset`.
     """
-    del order
     c, r = ids.shape
     p = si.shape[1]
     si64, sj64 = si.long(), sj.long()

@@ -8,13 +8,13 @@ Bound: bytes. Read once, the inputs are the distinct pool rows (0.57 ms at
 N = 1M fp32); but each vertex gathers its own R stored rows (24 KB at fp32,
 6 KB at int8, R = 48, D = 128; 24.6 GB a round at N = 1M fp32), and those
 gathered bytes, from device memory or L2, are what the kernel moves.
-Design: persistent blocks walk the vertices with two shared-memory row
-buffers; one warp issues a TMA bulk copy per touched row of the next vertex
-(completing on an mbarrier) while the others compute the current one, four
-sampled pairs a warp at once in the first port's summation order; results
-are staged in shared memory and stored by consecutive threads. The optional
-`order` (a permutation of the C vertices, `core.grnnd.locality_order`) sets
-the order in which blocks take the vertices; the outputs do not depend on it.
+Design: persistent blocks of 4 warps walk the vertices with one
+shared-memory row buffer each (8 blocks an SM at fp32). One warp issues a
+TMA bulk copy per touched pool row of the current vertex, completing on an
+mbarrier, and the next vertex's index rows one step ahead; the SM's other
+blocks compute while a block waits for its rows. Four sampled pairs a warp
+at once keep the first port's summation order; results are staged in
+shared memory and stored by consecutive threads.
 """
 
 from __future__ import annotations
@@ -26,21 +26,19 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGS = (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P)
+_ARGS = (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P)
 _SMEM_LIMIT = 227 * 1024
 
 
-def rng_round(x, ids, dists, si, sj, scale=None, offset=None, order=None):
+def rng_round(x, ids, dists, si, sj, scale=None, offset=None):
     """(dst, src, dij, kill) of one round; see `ref.rng_round_ref`.
 
     x (N, D) fp32, bf16 or int8 with the optional (D,) fp32 scale/offset
     dequant; ids (C, R) int32; dists (C, R) fp32; si / sj (C, P) int32 slot
-    indices in [0, R); order (C,) int32, optional: a permutation of the C
-    vertices, the order in which the kernel takes them (the outputs are
-    the same for any order).
+    indices in [0, R).
     """
     if x.device.type == "cpu":
-        return ref.rng_round_ref(x, ids, dists, si, sj, scale, offset, order)
+        return ref.rng_round_ref(x, ids, dists, si, sj, scale, offset)
     _build.check(
         "rng_round",
         x.device,
@@ -49,14 +47,11 @@ def rng_round(x, ids, dists, si, sj, scale=None, offset=None, order=None):
         dists=(dists, torch.float32),
         si=(si, torch.int32),
         sj=(sj, torch.int32),
-        order=(order, torch.int32),
     )
     _build.check_dequant("rng_round", x, scale, offset)
     (n, d), (c, r), p = x.shape, ids.shape, si.shape[1]
     if dists.shape != (c, r) or si.shape != (c, p) or sj.shape != (c, p):
         raise ValueError("rng_round: ids/dists must be (C, R) and si/sj (C, P)")
-    if order is not None and order.shape != (c,):
-        raise ValueError(f"rng_round: order must be ({c},), got {tuple(order.shape)}")
     smem = _build.function("rng_round", "rng_round_smem_bytes", (_I, _I, _I, _I, _I))
     if smem(r, p, d, x.element_size(), int(scale is not None)) > _SMEM_LIMIT:
         raise ValueError(f"rng_round: R*D = {r}*{d} rows do not fit in shared memory")
@@ -79,7 +74,6 @@ def rng_round(x, ids, dists, si, sj, scale=None, offset=None, order=None):
         dists.data_ptr(),
         si.data_ptr(),
         sj.data_ptr(),
-        _build.ptr(order),
         c,
         r,
         p,

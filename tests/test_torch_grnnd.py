@@ -30,7 +30,6 @@ from repro.core.search import search as jsearch
 from repro.data import synthetic as jsynthetic
 from repro_torch.core import grnnd, pools
 from repro_torch.core.draws import Draws, RecordedDraws
-from repro_torch.core.vecstore import encode
 
 # the suite runs in parallel workers: one intra-op thread each keeps torch
 # from oversubscribing the cores the JAX tests share
@@ -152,28 +151,3 @@ def test_build_graph_without_a_card_raises_unless_asked_for_the_cpu():
     cfg = grnnd.GRNNDConfig(s=4, r=8, t1=1, t2=1, pairs_per_vertex=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         grnnd.build_graph(_data("tiny", 50), cfg)
-
-
-def test_locality_order_is_a_seeded_permutation():
-    x = torch.from_numpy(_data("sift-like", 1000))
-    order = grnnd.locality_order(x, n_pivots=16, seed=3)
-    assert order.dtype == torch.int32
-    assert torch.equal(order.sort().values, torch.arange(1000, dtype=torch.int32))
-    assert torch.equal(order, grnnd.locality_order(x, n_pivots=16, seed=3))
-    assert torch.equal(order, grnnd.locality_order(x, n_pivots=16, seed=3, block=300))
-    store = encode(x, "int8")
-    order8 = grnnd.locality_order(store, n_pivots=16, seed=3)
-    assert torch.equal(order8.sort().values, torch.arange(1000, dtype=torch.int32))
-
-
-def test_update_round_is_unchanged_by_the_order():
-    n = 500
-    cfg = grnnd.GRNNDConfig(s=8, r=16, t1=1, t2=1, pairs_per_vertex=16)
-    x = torch.from_numpy(_data("sift-like", n))
-    draws = Draws(4, "cpu")
-    pool = pools.init_random(draws, x, cfg.s, cfg.r)
-    want = grnnd.update_round(x, pool, draws, cfg, 0, 0)
-    perm = torch.from_numpy(np.random.default_rng(0).permutation(n).astype(np.int32))
-    for order in (grnnd.locality_order(x), perm):
-        got = grnnd.update_round(x, pool, draws, cfg, 0, 0, order)
-        assert torch.equal(got.ids, want.ids) and torch.equal(got.dists, want.dists)
