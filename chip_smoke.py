@@ -14,7 +14,9 @@ Phases, each printing its own lines with seconds:
      the shapes the SIFT1M-shaped paths give it, with kernel / plain /
      library times and the least time the card could take (bytes over
      3.35 TB/s or fp32 operations over 67 TFLOP/s); `topr_merge` also at the
-     beam merges' shapes (W = 112, 176, 448, 560);
+     beam merges' shapes (W = 112, 176, 448, 560), `pairwise_sqdist` also at
+     the medoid's M = 1, with cuBLAS SGEMM (TF32 off) timed beside the
+     ground-truth row as the fp32 GEMM yardstick;
   3. parity at n = 100,000: one fp32 build and one int8 build (searched with
      an fp32 rescore) through the kernels, each again through
      `ops.backend("ref")` with the same draws; recall@10 at ef = 64 over
@@ -50,7 +52,8 @@ Phases, each printing its own lines with seconds:
      `compact()` (which re-runs the layout), search filtered again: no
      deleted label, predicate fraction 1.0, no rescore byte on the card;
   5. where the time goes: torch.profiler over one propagation round, one
-     search, one insert batch and one dynamic search; `rng_round` on the
+     search (with `search_expand`'s summed device time), one insert batch and
+     one dynamic search; `rng_round` on the
      built pool and with its ids folded into L2-resident rows; the static search with a larger visited table and with the
      dense one, and the share of true 10-NN the built pools hold.
 
@@ -168,6 +171,7 @@ ROW_PATH.update({"search_expand+filter": "filtered", "search_expand/int8+valid+f
 # launch counter (their rows say so under "launches_of")
 BEAM_MERGES = ((64, "main"), (128, "main"), (400, "filtered"), (512, "filtered"))  # (ef, path), W = ef + R
 ROW_PATH.update({f"topr_merge[W={ef + SIFT1M.build.r}]": path for ef, path in BEAM_MERGES})
+ROW_PATH["pairwise_sqdist[M=1]"] = "main"  # the medoid's shape; shares the counter
 
 
 def log(msg: str) -> None:
@@ -300,7 +304,8 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
     rows = []
 
     def measure(
-        name, source, replaces, kernel, plain, check, nbytes, nops, library, reps, launches_of=None
+        name, source, replaces, kernel, plain, check, nbytes, nops, library, reps, launches_of=None,
+        yardstick=None,
     ):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
@@ -328,6 +333,8 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
             }
         )
         lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
+        if yardstick is not None:  # (label, fn): timed beside the row, never called by the port
+            extra += f"; {yardstick[0]} {cuda_ms(yardstick[1], reps):.3f} ms"
         log(
             f"[kernels] {name}: {ms:.3f} ms, device {dev_ms:.3f} ms (plain {plain_ms:.3f} ms, "
             f"library {lib}, bound {b_ms:.3f} ms by {b_by}); max abs err {err:.3g}{extra}"
@@ -434,8 +441,8 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         20,
     )
 
-    def pairwise_check(got, want):
-        scale = (gt_q * gt_q).sum(-1)[:, None] + (x * x).sum(-1)[None, :]
+    def pairwise_check(got, want, xq=gt_q):
+        scale = (xq * xq).sum(-1)[:, None] + (x * x).sum(-1)[None, :]
         err = (got - want).abs()
         if bool((err > PAIRWISE_REL * scale + 1e-6).any()):
             raise AssertionError("pairwise_sqdist outside its tolerance")
@@ -453,7 +460,25 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         2 * mq * n * d,
         lambda: torch.cdist(gt_q, x).square(),
         5,
+        # the fp32 GEMM yardstick (cuBLAS SGEMM, TF32 off): the x.y part alone
+        yardstick=("SGEMM torch.mm(gt_q, x.T)", lambda: torch.mm(gt_q, x.T)),
     )
+    # the medoid's call: the corpus centroid against every row (M = 1)
+    cen = x.mean(0, keepdim=True)
+    measure(
+        "pairwise_sqdist[M=1]",
+        "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        "src/repro/kernels/pairwise_l2.py:80",
+        lambda: pairwise_sqdist(cen, x),
+        lambda: ref.pairwise_sqdist_ref(cen, x),
+        lambda got, want: pairwise_check(got, want, cen),
+        (1 + n) * d * 4 + n * 4,
+        3 * n * d,
+        lambda: torch.cdist(cen, x).square(),
+        20,
+        launches_of="pairwise_sqdist",
+    )
+    del cen
 
     # -- the storage variants and the tombstone mask, at the dynamic path's
     # shapes: the 43.2M-edge re-base of a 900,000-row build, the 130,000-row
@@ -1047,10 +1072,11 @@ def profiled(label: str, fn, top: int = 8) -> None:
     busy = sum(_device_us(e) for e in events) / 1e6
     if not events:
         log(f"[profile] {label}: {wall:.3f}s wall; the profiler saw no device time")
-        return
+        return events
     log(f"[profile] {label}: {wall:.3f}s wall, device busy {busy:.3f}s ({busy / wall:.1%})")
     for e in sorted(events, key=_device_us, reverse=True)[:top]:
         log(f"[profile]   {_device_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+    return events
 
 
 def phase_profile(x, queries, pool, truth, cfg, idx) -> None:
@@ -1073,9 +1099,15 @@ def phase_profile(x, queries, pool, truth, cfg, idx) -> None:
         "folded / built: " + " / ".join(f"{v:.3f}" for v in ms) + " ms"
     )
     del si, sj, folded
-    profiled(
+    events = profiled(
         "search ef=64 hashed, 10,000 queries",
         lambda: search(x, pool.ids, queries, k=10, ef=64, visited="hashed", device=dev),
+    )
+    b3 = [e for e in events if "search_expand" in e.key]
+    log(
+        f"[profile] search_expand (B3) over that search: "
+        f"{sum(_device_us(e) for e in b3) / 1e3:.2f} ms device time in "
+        f"{sum(e.count for e in b3)} launches"
     )
     # the dynamic index after compaction (900,000 live): one more insert
     # batch of 10,000 (rows near the corpus, new labels) and one search

@@ -149,20 +149,6 @@ __device__ __forceinline__ float part_sqdist_query(const float* q, const T* b, i
   return acc;
 }
 
-// Copy one stored row into fp32 `dst` (shared memory, 16-byte aligned),
-// dequantized, over the lanes of a warp: lane l writes quad l, so the
-// stores are consecutive 16 B and free of bank conflicts.
-template <bool Q, typename T>
-__device__ __forceinline__ void load_row_f32(const T* src, float* dst, int d, const float* scale,
-                                             const float* offset, bool quad, int lane) {
-  if (quad) {
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int c = lane; c < d / 4; c += 32) d4[c] = dequant_quad<Q>(src, scale, offset, c);
-  } else {
-    for (int k = lane; k < d; k += 32) dst[k] = dequant<Q>(src[k], scale, offset, k);
-  }
-}
-
 // Sum of one float over the 32 lanes of a warp (every lane gets the sum).
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -198,6 +184,34 @@ __device__ __forceinline__ float warp_row_sqdist(const float* a, const float* b,
 
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// 16-byte asynchronous copies global -> shared (cp.async, sm_80+), reading
+// `src_bytes` (16, or 0 to zero-fill) from `gmem`; commit / wait by group.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The current device's SM count (queried once).
+static int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
 }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.

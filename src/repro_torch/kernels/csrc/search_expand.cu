@@ -6,228 +6,243 @@
 // with the per-dimension scale/offset dequant), its `valid` variant and its
 // filter variant. Semantics: repro_torch/kernels/ref.py::search_expand_ref.
 //
-// One block per query; the query row is staged in shared memory, and with
-// the filter (a compile-time flag F) the query's W predicate words after it.
-//   * a neighbor is live when its id is >= 0 and, with the mask, its valid
-//     byte is set; the byte is read before the row, so neither an empty
-//     slot nor a tombstone reads a row. A dead neighbor comes out exactly
-//     as an empty slot: id -1, +inf, not fresh;
-//   * a live neighbor's row is read once, dequantized on the quantized rungs
-//     (bitwise the plain version's rows) and its squared distance to the
-//     query reduced with shuffles;
-//   * eight lanes read the 8 probe slots (max(v,0) % H + l) % H of the
-//     query's visited table and a ballot tells whether v is there;
-//   * with the filter, a live neighbor's lanes read its W label words once
-//     (int4 loads when W % 4 == 0 and the words are 16-byte aligned, single
-//     words otherwise), AND them with the staged query words, and a ballot
-//     folds the result: allowed = live && any word intersects. ids, dists
-//     and fresh are computed as without the filter (route-through); a dead
-//     or empty slot reads no words and is not allowed.
-// fp32 rows without a dequant (the static path) keep one warp per neighbor,
-// float4 per lane. The quantized rungs give each neighbor a group of L
-// lanes, one lane per 16 B of row from 8 to 32, each reading quads (four
-// elements in one load): at D = 128 eight lanes own a 128-byte int8 row,
-// so four neighbors share a warp and more row loads are in flight; a warp
-// reads element by element when D % 4 != 0.
-// Bound: the Q*R*D stored bytes of scattered neighbor-row reads per step
-// (plus Q*R*W*4 label-word bytes with the filter).
+// Bound: the unique stored neighbor rows a step reads (plus their label
+// words with the filter), the Q*R ids, the probed table slots and the
+// outputs. Each neighbor is a chain of dependent loads (id, then valid byte
+// / table window / label words, then the row), so the design puts each
+// query's loads of one kind in flight together instead of one neighbor
+// after another, and overlaps one query's rows with the next one's ids.
+// Persistent blocks of 256 threads (as many as the SMs hold, 8 an SM at
+// fp32, R = 48, D = 128) take queries q, q + G, ...; for each:
+//   1. (done while the previous query was in step 2) thread j read
+//      neighbor j's id and, with the mask, its valid byte, and wrote the
+//      output id and the live row index into shared memory, beside the
+//      query row. A neighbor is live when its id is >= 0 and, with the
+//      mask, its valid byte is set; a dead one comes out exactly as an
+//      empty slot (id -1, +inf, not fresh, not allowed) and reads no row,
+//      probe or label word.
+//   2. a group of L lanes per neighbor (a warp for fp32 rows without a
+//      dequant; one lane per 16 B of stored row, 8 to 32, on the quantized
+//      rungs) takes neighbors g, g + G', .... When the stored rows are a
+//      multiple of 16 B, 16-byte aligned, and the block's R rows fit 32 KB
+//      (fp32 to R = 64 at D = 128), the groups first issue 16-byte
+//      cp.async copies of all live rows into shared memory, so the rows are
+//      in flight together with no register held for them. While they fly,
+//      thread j reads live neighbor j's 8 table slots (max(v,0) % H + l) % H
+//      and (with the filter, a compile-time flag F) its W label words ANDed
+//      with the query's predicate words (int4 loads when W % 4 == 0 and the
+//      words are 16-byte aligned), writes fresh and allowed (consecutive
+//      threads, consecutive slots), and does step 1 for the block's next
+//      query into the other buffer. The groups then wait once; rows that
+//      cannot be copied so are read from device memory one neighbor at a
+//      time. Either way each row is dequantized (bitwise the plain
+//      version's rows) and summed in the per-lane order and shuffle tree of
+//      the kernels this one replaced (a warp's float4 tree for fp32), so
+//      dists are bitwise theirs; lane 0 of a group writes the distance to
+//      shared memory. Route-through: the filter changes neither ids, dists
+//      nor fresh.
+//   3. after a barrier, consecutive threads write the distances.
+// 27 KB of shared memory a block at fp32, R = 48, D = 128.
+#include <algorithm>
+
 #include "common.cuh"
 
 #define HASH_PROBES 8
 
-// Whether any of the W label words of one neighbor intersects the query's
-// staged predicate words `fw`: this lane's share, over `lanes` lanes
-// (`sub` = lane in its group). quad = int4 loads.
-__device__ __forceinline__ bool part_label_hit(const int* __restrict__ vw, const int* fw, int w,
-                                               bool quad, int sub, int lanes) {
+// Whether any of the W label words `vw` of one neighbor intersects the
+// query's predicate words `fw` (int4 loads with quad).
+__device__ __forceinline__ bool label_hit(const int* __restrict__ vw,
+                                          const int* __restrict__ fw, int w, bool quad) {
   bool hit = false;
   if (quad) {
     const int4* v4 = reinterpret_cast<const int4*>(vw);
-    for (int c = sub; c < w / 4; c += lanes) {
-      const int4 a = __ldg(v4 + c);
-      hit |= ((a.x & fw[4 * c]) | (a.y & fw[4 * c + 1]) | (a.z & fw[4 * c + 2]) |
-              (a.w & fw[4 * c + 3])) != 0;
+    const int4* f4 = reinterpret_cast<const int4*>(fw);
+    for (int c = 0; c < w / 4; ++c) {
+      const int4 a = __ldg(v4 + c), b = __ldg(f4 + c);
+      hit |= ((a.x & b.x) | (a.y & b.y) | (a.z & b.z) | (a.w & b.w)) != 0;
     }
   } else {
-    for (int k = sub; k < w; k += lanes) hit |= (__ldg(vw + k) & fw[k]) != 0;
+    for (int k = 0; k < w; ++k) hit |= (__ldg(vw + k) & __ldg(fw + k)) != 0;
   }
   return hit;
 }
 
-// Stage the query row (D floats) and, with the filter, its W predicate
-// words right after it in shared memory.
-template <bool F>
-__device__ __forceinline__ void stage_query(float* qs, const float* __restrict__ queries,
-                                            const int* __restrict__ fwords, int64_t q, int d,
-                                            int w) {
-  for (int k = threadIdx.x; k < d; k += blockDim.x) qs[k] = queries[q * d + k];
-  if constexpr (F) {
-    int* fw = reinterpret_cast<int*>(qs + d);
-    for (int k = threadIdx.x; k < w; k += blockDim.x) fw[k] = fwords[q * w + k];
-  }
-  __syncthreads();
+// Whether the live rows go through shared memory by 16-byte async copies
+// (stored rows of a multiple of 16 bytes, 16-byte aligned, and R rows that
+// fit the budget below), else straight from device memory, a row at a time.
+constexpr size_t ROWS_SMEM_MAX = 32 * 1024;
+
+// Shared-memory bytes before the rows: two query rows, two (ids, live)
+// pairs of R ints, R dists, rounded to 16.
+__host__ __device__ inline size_t head_bytes(int d, int r) {
+  return ((2 * (size_t)((d + 3) & ~3) + 5 * (size_t)r) * 4 + 15) / 16 * 16;
 }
 
-template <bool F>
-__global__ void search_expand_f32_kernel(const float* __restrict__ x, int n, int d,
-                                         const float* __restrict__ queries,
-                                         const int* __restrict__ nbrs, int r,
-                                         const int* __restrict__ table, int h,
-                                         const uint8_t* __restrict__ valid,
-                                         const int* __restrict__ vwords,
-                                         const int* __restrict__ fwords, int w,
-                                         int* __restrict__ out_ids,
-                                         float* __restrict__ out_dists,
-                                         uint8_t* __restrict__ fresh,
-                                         uint8_t* __restrict__ allowed, bool vec4, bool wquad) {
-  extern __shared__ __align__(16) float qs[];  // (D,) query, then (W,) words
-  const int64_t q = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  stage_query<F>(qs, queries, fwords, q, d, w);
-
-  const int* tab = table + q * h;
-  for (int j = warp; j < r; j += nwarps) {
-    const int64_t o = q * r + j;
-    const int v = nbrs[o];
-    bool ok = v >= 0;
-    if (ok && valid != nullptr) ok = valid[min(v, n - 1)] != 0;
-    float dd = CUDART_INF_F;
-    if (ok) dd = warp_row_sqdist(qs, x + (int64_t)min(v, n - 1) * d, d, vec4, lane);
-    bool seen = false;
-    if (lane < HASH_PROBES) seen = tab[(max(v, 0) % h + lane) % h] == v;
-    const unsigned found = __ballot_sync(REPRO_FULL_MASK, seen);
-    unsigned hits = 0u;
-    if constexpr (F) {
-      bool hit = false;
-      if (ok)
-        hit = part_label_hit(vwords + (int64_t)min(v, n - 1) * w,
-                             reinterpret_cast<const int*>(qs + d), w, wquad, lane, 32);
-      hits = __ballot_sync(REPRO_FULL_MASK, hit);
-    }
-    if (lane == 0) {
-      out_ids[o] = ok ? v : -1;
-      out_dists[o] = dd;
-      fresh[o] = (uint8_t)(ok && found == 0u);
-      if constexpr (F) allowed[o] = (uint8_t)(ok && hits != 0u);
-    }
-  }
-}
-
-// Resident blocks asked of the compiler per SM: the quantized steps are
-// latency-bound (dependent id -> mask -> row loads), so eight 256-thread
-// blocks (32 registers a thread); fp32 rows with a dequant keep four.
-template <typename T>
+// Resident blocks asked of the compiler per SM: 8 (32 registers a thread),
+// but 6 for fp32 rows with the filter, which spills at 32 registers and
+// read slower so.
+template <typename T, bool F>
 struct MinBlocks {
-  static constexpr int value = sizeof(T) == 4 ? 4 : 8;
+  static constexpr int value = F && sizeof(T) == 4 ? 6 : 8;
 };
 
-template <typename T, bool Q, bool F>
-__global__ void __launch_bounds__(256, MinBlocks<T>::value)
+template <typename T, bool Q, bool F, bool ASYNC>
+__global__ void __launch_bounds__(256, MinBlocks<T, F>::value)
     search_expand_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                          const float* __restrict__ offset, int n, int d,
-                         const float* __restrict__ queries, const int* __restrict__ nbrs, int r,
-                         const int* __restrict__ table, int h, const uint8_t* __restrict__ valid,
-                         const int* __restrict__ vwords, const int* __restrict__ fwords, int w,
-                         int* __restrict__ out_ids, float* __restrict__ out_dists,
-                         uint8_t* __restrict__ fresh, uint8_t* __restrict__ allowed, bool quad,
-                         int lanes, bool wquad) {
-  extern __shared__ __align__(16) float qs[];  // (D,) query, then (W,) words
-  const int64_t q = blockIdx.x;
-  stage_query<F>(qs, queries, fwords, q, d, w);
+                         const float* __restrict__ queries, const int* __restrict__ nbrs,
+                         long long nq, int r, const int* __restrict__ table, int h,
+                         const uint8_t* __restrict__ valid, const int* __restrict__ vwords,
+                         const int* __restrict__ fwords, int w, int* __restrict__ out_ids,
+                         float* __restrict__ out_dists, uint8_t* __restrict__ fresh,
+                         uint8_t* __restrict__ allowed, bool quad, int lanes, bool wquad) {
+  // two buffers (this query's, the next one's) of the query row (dp,), the
+  // ids (R,) and the live rows (R,); the dists (R,); with ASYNC the R
+  // stored rows
+  extern __shared__ __align__(16) float smf[];
+  const int dp = (d + 3) & ~3;
+  int* ids = reinterpret_cast<int*>(smf + 2 * dp);
+  int* live = ids + 2 * r;
+  float* dist = reinterpret_cast<float*>(live + 2 * r);
+  char* rows = reinterpret_cast<char*>(smf) + head_bytes(d, r);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, sub = lane & (lanes - 1);
+  const int group = tid / lanes, ngroups = blockDim.x / lanes;
+  const int rb = d * (int)sizeof(T);  // stored row bytes
 
-  const int lane = threadIdx.x & 31;
-  const int sub = lane & (lanes - 1);
-  const int group = threadIdx.x / lanes, ngroups = blockDim.x / lanes;
-  const int shift = (lane / lanes) * lanes;  // the group's first bit in a warp ballot
-  const unsigned gmask = lanes == 32 ? REPRO_FULL_MASK : ((1u << lanes) - 1u);
-  const int* tab = table + q * h;
-  // a uniform trip count: every lane reaches every ballot and shuffle
-  for (int base = 0; base < r; base += ngroups) {
-    const int j = base + group;
-    const bool in_row = j < r;
-    const int64_t o = q * r + j;
-    const int v = in_row ? nbrs[o] : -1;
-    bool ok = v >= 0;
-    if (ok && valid != nullptr) ok = valid[min(v, n - 1)] != 0;
-    float part = 0.f;
-    if (ok) {
-      const T* row = x + (int64_t)min(v, n - 1) * d;
-      part = part_sqdist_query<Q>(qs, row, d, scale, offset, quad, sub, lanes);
+  // query qq's row, and slot j's valid byte, live row and output id, into
+  // buffer bb
+  auto stage_row = [&](long long qq, int bb) {
+    for (int k = tid; k < d; k += blockDim.x) smf[bb * dp + k] = queries[qq * d + k];
+  };
+  auto settle = [&](long long qq, int bb, int j, int v) {
+    const int vc = min(max(v, 0), n - 1);
+    bool alive = v >= 0;
+    if (alive && valid != nullptr) alive = valid[vc] != 0;
+    ids[bb * r + j] = v;
+    live[bb * r + j] = alive ? vc : -1;
+    out_ids[qq * r + j] = alive ? v : -1;
+  };
+
+  long long q = blockIdx.x;
+  stage_row(q, 0);
+  for (int j = tid; j < r; j += blockDim.x) settle(q, 0, j, nbrs[q * r + j]);
+  __syncthreads();
+
+  for (int b = 0; q < nq; q += gridDim.x, b ^= 1) {
+    const int* lv = live + b * r;
+    // 1. the live rows' copies (a group of `lanes` lanes per neighbor)
+    if constexpr (ASYNC) {
+      for (int j = group; j < r; j += ngroups) {
+        const int v = lv[j];
+        if (v < 0) continue;
+        const char* src = reinterpret_cast<const char*>(x) + (int64_t)v * rb;
+        for (int c = 16 * sub; c < rb; c += 16 * lanes)
+          cp_async16(rows + (size_t)j * rb + c, src + c, 16);
+      }
+      cp_async_commit();
     }
-    const float dd = group_sum(part, lanes);
-    bool seen = false;
-    if (in_row && sub < HASH_PROBES) seen = tab[(max(v, 0) % h + sub) % h] == v;
-    const unsigned found = (__ballot_sync(REPRO_FULL_MASK, seen) >> shift) & gmask;
-    unsigned hits = 0u;
-    if constexpr (F) {
-      bool hit = false;
-      if (ok)
-        hit = part_label_hit(vwords + (int64_t)min(v, n - 1) * w,
-                             reinterpret_cast<const int*>(qs + d), w, wquad, sub, lanes);
-      hits = (__ballot_sync(REPRO_FULL_MASK, hit) >> shift) & gmask;
+    // 2. while they fly: the next query's row and ids, and this one's
+    // probes and label words
+    const long long qn = q + gridDim.x;
+    const bool next = qn < nq;
+    if (next) stage_row(qn, b ^ 1);
+    const int* tab = table + q * h;
+    for (int j = tid; j < r; j += blockDim.x) {
+      const int vn = next ? nbrs[qn * r + j] : -1;
+      const int64_t o = q * r + j;
+      const int v = ids[b * r + j];
+      const bool alive = lv[j] >= 0;
+      bool found = false, hit = false;
+      if (alive) {
+        const int p0 = v % h;
+#pragma unroll
+        for (int l = 0; l < HASH_PROBES; ++l) {
+          int p = p0 + l;
+          if (p >= h) p %= h;
+          found |= tab[p] == v;
+        }
+        if constexpr (F) hit = label_hit(vwords + (int64_t)lv[j] * w, fwords + q * w, w, wquad);
+      }
+      fresh[o] = (uint8_t)(alive && !found);
+      if constexpr (F) allowed[o] = (uint8_t)(alive && hit);
+      if (next) settle(qn, b ^ 1, j, vn);
     }
-    if (in_row && sub == 0) {
-      out_ids[o] = ok ? v : -1;
-      out_dists[o] = ok ? dd : CUDART_INF_F;
-      fresh[o] = (uint8_t)(ok && found == 0u);
-      if constexpr (F) allowed[o] = (uint8_t)(ok && hits != 0u);
+    if constexpr (ASYNC) {
+      cp_async_wait<0>();
+      __syncwarp();  // a group's lanes sit in one warp
     }
+    // 3. the distances; a uniform trip count: every lane reaches every shuffle
+    for (int base = 0; base < r; base += ngroups) {
+      const int j = base + group;
+      const int v = j < r ? lv[j] : -1;
+      float part = 0.f;
+      if (v >= 0) {
+        const T* row =
+            ASYNC ? reinterpret_cast<const T*>(rows + (size_t)j * rb) : x + (int64_t)v * d;
+        part = part_sqdist_query<Q>(smf + b * dp, row, d, scale, offset, quad, sub, lanes);
+      }
+      const float dd = group_sum(part, lanes);
+      if (sub == 0 && v >= 0) dist[j] = dd;
+    }
+    __syncthreads();
+    for (int j = tid; j < r; j += blockDim.x)
+      out_dists[q * r + j] = lv[j] >= 0 ? dist[j] : CUDART_INF_F;
+    __syncthreads();  // the rows, the dists and this buffer are free again
   }
 }
 
-// One launch of the kernel that fits the rung: fp32 rows without a dequant
-// keep the warp-per-neighbor kernel, the rest the lane-group kernel; F (the
-// filter) is a template flag, so the filter-free instantiations are the
-// code they were before it.
-template <typename T, bool F>
-static cudaError_t launch(const void* xv, const float* scale, const float* offset, int n, int d,
+// One launch of the instantiation that fits: Q (a dequant) and F (the
+// filter) are compile-time flags, so the filter-free fp32 code carries
+// neither. The blocks are persistent: as many as the SMs hold at once.
+template <typename T, bool Q, bool F>
+static cudaError_t launch(const T* x, const float* scale, const float* offset, int n, int d,
                           const float* queries, const int* nbrs, long long q, int r,
                           const int* table, int h, const uint8_t* valid, const int* vwords,
                           const int* fwords, int w, int* out_ids, float* out_dists,
                           uint8_t* fresh, uint8_t* allowed, cudaStream_t stream) {
-  const T* x = static_cast<const T*>(xv);
-  const size_t smem = (size_t)d * sizeof(float) + (F ? (size_t)w * sizeof(int) : 0);
-  const bool wquad = F && w % 4 == 0 && aligned16(vwords);
-  if constexpr (sizeof(T) == 4) {
-    if (scale == nullptr) {
-      cudaError_t err = allow_smem(search_expand_f32_kernel<F>, smem);
-      if (err != cudaSuccess) return err;
-      const bool vec4 = (d % 4 == 0) && aligned16(x);
-      search_expand_f32_kernel<F><<<(unsigned)q, 256, smem, stream>>>(
-          x, n, d, queries, nbrs, r, table, h, valid, vwords, fwords, w, out_ids, out_dists,
-          fresh, allowed, vec4, wquad);
-      return cudaGetLastError();
-    }
-  }
   const bool quad = rows_quad<T>(x, d, scale, offset);
-  const int lanes = quad ? lanes_per_row<T>(d, true, HASH_PROBES) : 32;
-  if (scale != nullptr) {
-    cudaError_t err = allow_smem(search_expand_kernel<T, true, F>, smem);
-    if (err != cudaSuccess) return err;
-    search_expand_kernel<T, true, F><<<(unsigned)q, 256, smem, stream>>>(
-        x, scale, offset, n, d, queries, nbrs, r, table, h, valid, vwords, fwords, w, out_ids,
-        out_dists, fresh, allowed, quad, lanes, wquad);
-  } else {
-    cudaError_t err = allow_smem(search_expand_kernel<T, false, F>, smem);
-    if (err != cudaSuccess) return err;
-    search_expand_kernel<T, false, F><<<(unsigned)q, 256, smem, stream>>>(
-        x, scale, offset, n, d, queries, nbrs, r, table, h, valid, vwords, fwords, w, out_ids,
-        out_dists, fresh, allowed, quad, lanes, wquad);
+  const int lanes = (sizeof(T) == 4 && !Q) ? 32 : (quad ? lanes_per_row<T>(d, true, HASH_PROBES) : 32);
+  const bool wquad = F && w % 4 == 0 && aligned16(vwords) && aligned16(fwords);
+  const size_t row_bytes = (size_t)d * sizeof(T) * r;
+  const bool async = quad && (d * sizeof(T)) % 16 == 0 && aligned16(x) && row_bytes <= ROWS_SMEM_MAX;
+  const size_t smem = head_bytes(d, r) + (async ? row_bytes : 0);
+#define REPRO_EXPAND(AA)                                                                         \
+  {                                                                                              \
+    auto kernel = search_expand_kernel<T, Q, F, AA>;                                             \
+    cudaError_t err = allow_smem(kernel, smem);                                                  \
+    if (err != cudaSuccess) return err;                                                          \
+    int per_sm = 0;                                                                              \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 256, smem);             \
+    if (err != cudaSuccess) return err;                                                          \
+    const long long blocks = std::min<long long>(q, (long long)std::max(per_sm, 1) * sm_count()); \
+    kernel<<<(unsigned)blocks, 256, smem, stream>>>(x, scale, offset, n, d, queries, nbrs, q, r,  \
+                                                   table, h, valid, vwords, fwords, w, out_ids,  \
+                                                   out_dists, fresh, allowed, quad, lanes, wquad); \
+    return cudaGetLastError();                                                                   \
   }
-  return cudaGetLastError();
+  if (async) REPRO_EXPAND(true)
+  REPRO_EXPAND(false)
+#undef REPRO_EXPAND
 }
 
 template <typename T>
-static cudaError_t launch_rung(const void* x, const float* scale, const float* offset, int n,
+static cudaError_t launch_rung(const void* xv, const float* scale, const float* offset, int n,
                                int d, const float* queries, const int* nbrs, long long q, int r,
                                const int* table, int h, const uint8_t* valid, const int* vwords,
                                const int* fwords, int w, int* out_ids, float* out_dists,
                                uint8_t* fresh, uint8_t* allowed, cudaStream_t stream) {
-  if (vwords != nullptr)
-    return launch<T, true>(x, scale, offset, n, d, queries, nbrs, q, r, table, h, valid, vwords,
-                           fwords, w, out_ids, out_dists, fresh, allowed, stream);
-  return launch<T, false>(x, scale, offset, n, d, queries, nbrs, q, r, table, h, valid, vwords,
-                          fwords, w, out_ids, out_dists, fresh, allowed, stream);
+  const T* x = static_cast<const T*>(xv);
+#define REPRO_RUNG(QQ, FF)                                                                      \
+  return launch<T, QQ, FF>(x, scale, offset, n, d, queries, nbrs, q, r, table, h, valid, vwords, \
+                           fwords, w, out_ids, out_dists, fresh, allowed, stream)
+  if (scale != nullptr) {
+    if (vwords != nullptr) REPRO_RUNG(true, true);
+    REPRO_RUNG(true, false);
+  }
+  if (vwords != nullptr) REPRO_RUNG(false, true);
+  REPRO_RUNG(false, false);
+#undef REPRO_RUNG
 }
 
 // vwords (N, W) / fwords (Q, W) int32 and `allowed` (Q, R) are all given

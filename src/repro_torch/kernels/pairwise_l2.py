@@ -6,14 +6,17 @@ replaces `src/repro/kernels/pairwise_l2.py::rowwise_sqdist_pallas`. Both run
 the hand-written CUDA kernels of `csrc/pairwise_l2.cu` for CUDA tensors and
 the plain versions in `ref.py` for CPU tensors.
 
-pairwise: bound by its 2*M*N*D fp32 FMAs at the ground-truth shapes
-(1024 queries x 1M rows x 128); the kernel is a 64x64-tile shared-memory
-FMA GEMM with the norms summed from the staged tiles (no TF32, no library
-GEMM). Either side may be stored at bf16 or int8 with its own (D,)
-scale/offset: the tile is dequantized while it is staged, so the norms come
-from the dequantized values (the medoid of the dynamic index reads its
-int8 tier this way). rowwise: bound by its 2*M*D*4 input bytes; one warp
-per row pair with float4 loads.
+pairwise: bound by its 2*M*N*D fp32 FMAs at the ground-truth shapes (1024
+queries x 1M rows x 128). For M > 4 the kernel is a pipelined register-tiled
+GEMM on the FMA units (no TF32, no library GEMM): 128x256 output tiles of
+256 threads, 8x16 a thread, one persistent block an SM, K-slabs of 32
+through a ring of four shared-memory stages fed by 16-byte `cp.async` copies
+(fp32 rows) or register loads (bf16 / int8 rows, dequantized on the way: the
+medoid and ground truth of the dynamic index read its int8 tier this way),
+the norms summed once a block, and 16-byte streaming stores. For M <= 4 (the
+medoid's M = 1) a row-streaming kernel holds the queries in shared memory
+and is bound by the N*D stored bytes of y. rowwise: bound by its 2*M*D*4
+input bytes; one warp per row pair with float4 loads.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from repro_torch.kernels import _build, ref
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PAIRWISE_ARGS = (_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P)
 _ROWWISE_ARGS = (_P, _P, _L, _I, _P, _P)
-_MAX_M = 65535 * 64  # grid.y limit of the 64-row tiles
+_MAX_M = 2**31 - 1  # M is a C int; the persistent grid sets no limit of its own
 
 
 def pairwise_sqdist(

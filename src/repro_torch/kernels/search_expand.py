@@ -6,20 +6,26 @@ its `valid` tombstone mask and its filter variant (the label predicate of
 filtered search). CUDA tensors run the hand-written kernel of
 `csrc/search_expand.cu`; CPU tensors run `ref.search_expand_ref`.
 
-Bound: the Q*R*D bytes of scattered stored neighbor rows a step reads
-(245 MB at fp32, 61 MB at int8, Q = 10,000, R = 48, D = 128). Design: one
-block per query with the query in shared memory; a group of lanes per
-neighbor, one lane per 16 B of stored row (8 for a 128-byte int8 row, so
-four neighbors share a warp; a warp for fp32), reads its row once in quads
-(four elements per load), dequantizes, and reduces with shuffles, while
-eight lanes of the group probe the visited table's window and a ballot
-gives `fresh`.
-A dead neighbor's `valid` byte is read before its row, so neither empty
-slots nor tombstones read a row. With the filter, the query's W predicate
-words sit in shared memory after the query; a live neighbor's group reads
-its W label words once (int4 loads when W % 4 == 0), ANDs them with the
-staged words and folds the result with a ballot into `allowed`; ids, dists
-and fresh are those of the unfiltered step (route-through).
+Bound: the bytes a step must move, counting each stored neighbor row once
+however many queries share it (the unique rows of `nbrs`, as `chip_smoke.py`
+counts them: 0.040 ms at fp32, Q = 10,000, R = 48, D = 128 on the SIFT1M
+shape), plus the ids, the probed table slots, the label words with the
+filter, and the outputs. Each neighbor is a chain of dependent loads
+(id, then valid byte, table window and label words, then the row), so the
+design puts each query's loads of one kind in flight together: one block
+per query. Its threads read the R
+ids and valid bytes at once, coalesced; after one barrier lane groups (a
+warp per fp32 row, one lane per 16 B of stored row on the quantized rungs)
+issue 16-byte async copies of all live rows into shared memory (rows of a
+multiple of 16 B, up to 32 KB a block; other rows are read directly), and
+while they fly each live neighbor's thread issues its 8-slot table window
+and label words together and writes `fresh` and `allowed`; the groups then
+sum each row in the order of the kernel it replaced, so dists stay bitwise,
+and the distances go out through shared memory, written by consecutive
+threads. A dead neighbor (id < 0, or tombstoned by `valid`) reads no row
+and comes out as an empty slot. With the filter, `allowed` is
+the AND of the neighbor's W label words with the query's predicate words;
+ids, dists and fresh are those of the unfiltered step (route-through).
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@ Marked `cuda`: without a card every test here skips. On a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Shapes cover the ragged cases the main path does not (D not a multiple of 4,
-W < r, M and N off the 64-row tiles, the 1-slot dense-mode table), and the
+W < r, M and N off pairwise's 128-row tiles, D off its 32-deep K-slabs, M
+on both sides of its row-streaming kernel's M <= 4, rows that are not
+16-byte aligned, search_expand at R = 1, 13, 48 and 64 with rows of -1
+ids and D = 960, the 1-slot dense-mode table), and the
 storage variants (bf16, int8 with scale/offset) and tombstone mask of the
 dynamic path at D = 33 (no 16-byte row loads) and D = 128, with N off the
 block sizes, and the label filter of search_expand at W = 1, 3, 4 and 5
@@ -111,8 +114,14 @@ def merge_cases(w: int, seed: int = 0):
     return ids, dists
 
 
+# edges of the 128x128 tiles and 32-deep K-slabs (M, N off the tile, D off
+# the slab or off 4) and of the row-streaming kernel for M <= 4
+PAIRWISE_EDGES = [(16, 1000, 128), (17, 300, 128), (129, 257, 33), (128, 128, 16),
+                  (3, 70_000, 128), (130, 1000, 960), (4, 3001, 33), (5, 3001, 128)]
+
+
 @pytest.mark.parametrize(
-    "m,n,d", [(1, 1000, 128), (70, 130, 33), (1024, 4096, 128), (5, 64, 960)]
+    "m,n,d", [(1, 1000, 128), (70, 130, 33), (1024, 4096, 128), (5, 64, 960)] + PAIRWISE_EDGES
 )
 def test_pairwise_sqdist_kernel(dev, m, n, d):
     g = torch.Generator(dev).manual_seed(m + n)
@@ -123,6 +132,20 @@ def test_pairwise_sqdist_kernel(dev, m, n, d):
     scale = (x * x).sum(-1)[:, None] + (y * y).sum(-1)[None, :]
     assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
     assert (got >= 0).all()
+
+
+@pytest.mark.parametrize("m,n,d", [(1, 500, 128), (200, 300, 128), (16, 257, 36)])
+def test_pairwise_sqdist_kernel_unaligned_rows(dev, m, n, d):
+    """Rows starting 4 bytes past a 16-byte boundary: no async copies, no
+    16-byte loads; the same results."""
+    g = torch.Generator(dev).manual_seed(m + n + 1)
+    xb = torch.randn((m * d + 1,), generator=g, device=dev)
+    yb = torch.randn((n * d + 1,), generator=g, device=dev)
+    x, y = xb[1:].view(m, d), yb[1:].view(n, d)
+    got = _launched("pairwise_sqdist", lambda: pairwise_sqdist(x, y))
+    want = ref.pairwise_sqdist_ref(x, y)
+    scale = (x * x).sum(-1)[:, None] + (y * y).sum(-1)[None, :]
+    assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
 
 
 @pytest.mark.parametrize("m,d", [(1, 128), (1000, 33), (100_000, 128)])
@@ -206,12 +229,21 @@ def test_rng_round_kernel(dev, n, d, c, r, p):
     assert not (bad_rows & ~near.any(1)).any()
 
 
-@pytest.mark.parametrize("n,d,q,r,h", [(20_000, 128, 500, 48, 512), (900, 33, 64, 16, 1)])
+# R = 1, 13, 48 and 64 (a group's neighbors in flight: 1 to 8), D = 33 and
+# 960 (no quads; 8 quads a lane), H = 1 (the dense-mode table) and 8
+EXPAND_EDGES = [(901, 960, 64, 64, 512), (900, 33, 64, 1, 1), (3001, 128, 100, 13, 8),
+                (2000, 960, 50, 1, 512)]
+
+
+@pytest.mark.parametrize(
+    "n,d,q,r,h", [(20_000, 128, 500, 48, 512), (900, 33, 64, 16, 1)] + EXPAND_EDGES
+)
 def test_search_expand_kernel(dev, n, d, q, r, h):
     g = torch.Generator(dev).manual_seed(n)
     x = torch.randn((n, d), generator=g, device=dev)
     queries = torch.randn((q, d), generator=g, device=dev)
     nbrs = torch.randint(-1, n, (q, r), generator=g, device=dev, dtype=torch.int32)
+    nbrs[::7] = -1  # queries with no live neighbor
     table = torch.full((q, h), -1, dtype=torch.int32, device=dev)
     if h > 1:
         _table_insert(table, nbrs[:, : r // 2])
@@ -279,12 +311,15 @@ def test_rng_round_kernel_quantized(dev, precision, n, d, c, r, p):
 
 @pytest.mark.parametrize("precision", RUNGS)
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("n,d,q,r,h", [(20_011, 128, 500, 48, 512), (901, 33, 64, 16, 1)])
+@pytest.mark.parametrize(
+    "n,d,q,r,h", [(20_011, 128, 500, 48, 512), (901, 33, 64, 16, 1)] + EXPAND_EDGES
+)
 def test_search_expand_kernel_variants(dev, precision, masked, n, d, q, r, h):
     g = torch.Generator(dev).manual_seed(n + q)
     data, scale, offset = _store(torch.randn((n, d), generator=g, device=dev), precision)
     queries = torch.randn((q, d), generator=g, device=dev)
     nbrs = torch.randint(-1, n, (q, r), generator=g, device=dev, dtype=torch.int32)
+    nbrs[::7] = -1
     table = torch.full((q, h), -1, dtype=torch.int32, device=dev)
     if h > 1:
         _table_insert(table, nbrs[:, : r // 2])
@@ -320,7 +355,7 @@ def test_search_expand_kernel_fp32_with_dequant(dev):
 
 
 @pytest.mark.parametrize("xp,yp", [("fp32", "int8"), ("int8", "bf16"), ("bf16", "fp32")])
-@pytest.mark.parametrize("m,n,d", [(1, 1003, 128), (70, 130, 33)])
+@pytest.mark.parametrize("m,n,d", [(1, 1003, 128), (70, 130, 33)] + PAIRWISE_EDGES)
 def test_pairwise_sqdist_kernel_quantized(dev, xp, yp, m, n, d):
     g = torch.Generator(dev).manual_seed(m + n + d)
     xs = _store(torch.randn((m, d), generator=g, device=dev), xp)
@@ -370,7 +405,11 @@ def test_dynamic_index_on_the_card_matches_the_plain_path(dev, precision):
 @pytest.mark.parametrize("precision", RUNGS)
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("w", [1, 3, 4, 5])
-@pytest.mark.parametrize("n,d,q,r,h", [(20_011, 128, 300, 48, 512), (901, 33, 64, 13, 1)])
+@pytest.mark.parametrize(
+    "n,d,q,r,h",
+    [(20_011, 128, 300, 48, 512), (901, 33, 64, 13, 1), (3001, 960, 64, 64, 512),
+     (2000, 128, 300, 1, 8)],
+)
 def test_search_expand_kernel_filter(dev, precision, masked, w, n, d, q, r, h):
     """The filter variant: `allowed` exactly the plain version's; ids,
     dists and fresh bitwise those of the same launch without the filter."""

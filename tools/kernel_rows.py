@@ -9,8 +9,11 @@ tree's `build/`), draws the SIFT1M-shaped corpus of `chip_smoke.py` (seed 0),
 builds the kernels, and runs phase 2: every kernel row held against its
 plain version and timed. Prints the phase's own log lines, then one JSON
 line: the tree and the event-timed milliseconds of each row whose name
-contains `--match` (every row by default). Run the two checkouts in
-separate processes within one call, alternating (A, B, B, A).
+contains `--match` (every row by default). With `--device-time` every time
+of the phase is the profiler's device time instead: kernels of a few tens
+of microseconds, launched back to back from Python, read the host's launch
+rate on CUDA events. Run the two checkouts in separate processes within one
+call, alternating (A, B, B, A).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", required=True, help="checkout whose chip_smoke.py to run")
     ap.add_argument("--match", default="", help="keep the rows whose name contains this")
+    ap.add_argument("--device-time", action="store_true", help="time rows by device time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_rows: torch.cuda.is_available() is False; this script needs a card")
@@ -38,13 +42,16 @@ def main() -> None:
     from repro_torch.data import synthetic
 
     cs.phase_device()
+    if args.device_time:
+        cs.cuda_ms = cs.device_ms
     dev = torch.device("cuda", 0)
     g = torch.Generator(dev).manual_seed(cs.SEED)
     x = synthetic.make_preset(g, "sift-like", SIFT1M.n)
     queries = synthetic.queries_from(g, x, SIFT1M.n_queries)
     rows = cs.phase_kernels(x, queries, Draws(cs.SEED + 1, dev), SIFT1M.build)
     ms = {r["name"]: r["ms"] for r in rows if args.match in r["name"]}
-    print(json.dumps({"tree": str(tree), "ms": ms}), flush=True)
+    clock = "device" if args.device_time else "event"
+    print(json.dumps({"tree": str(tree), "clock": clock, "ms": ms}), flush=True)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,10 @@ Imports `repro_torch` from `<tree>/src` (kernels build into that tree's
 config, runs one warm-up search and then `--reps` hashed searches at ef 64,
 each ended by a sync. Prints one JSON line: the tree, the seconds of each
 search, their median, the median QPS, and the mean `n_expanded` (equal
-across trees when both do the same work). Run it alternately on both
+across trees when both do the same work); then the device time of
+`search_expand` (B3) over one more search under torch.profiler, and the
+seconds of three runs of the main path's ground truth (`brute_force_knn`
+of the 10,000 queries: ten launches of B5). Run it alternately on both
 checkouts, in separate processes: the search is host-bound, and the host's
 speed drifts within a call.
 """
@@ -39,7 +42,7 @@ def main() -> None:
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree / "src"))
     from repro_torch.configs.grnnd_paper import SIFT1M
-    from repro_torch.core import Draws, build_graph, search
+    from repro_torch.core import Draws, brute_force_knn, build_graph, search
     from repro_torch.data import synthetic
 
     dev = torch.device("cuda", 0)
@@ -60,6 +63,22 @@ def main() -> None:
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     med = statistics.median(secs)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    b3 = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and "search_expand" in e.key
+    ]
+    gt_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        brute_force_knn(x, queries, 10, device=dev)
+        torch.cuda.synchronize()
+        gt_s.append(time.perf_counter() - t0)
     print(
         json.dumps(
             {
@@ -68,6 +87,9 @@ def main() -> None:
                 "median_s": med,
                 "median_qps": queries.shape[0] / med,
                 "mean_n_expanded": float(res.n_expanded.float().mean()),
+                "search_expand_device_ms": sum(e.self_device_time_total for e in b3) / 1e3,
+                "search_expand_launches": sum(e.count for e in b3),
+                "ground_truth_s": gt_s,
             }
         ),
         flush=True,
