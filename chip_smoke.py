@@ -52,10 +52,11 @@ Phases, each printing its own lines with seconds:
      `compact()` (which re-runs the layout), search filtered again: no
      deleted label, predicate fraction 1.0, no rescore byte on the card;
   5. where the time goes: torch.profiler over one propagation round, one
-     search (with `search_expand`'s summed device time), one insert batch and
-     one dynamic search; `rng_round` on the
-     built pool and with its ids folded into L2-resident rows; the static search with a larger visited table and with the
-     dense one, and the share of true 10-NN the built pools hold.
+     search (with `search_expand`'s summed device time), one insert batch
+     and one dynamic search; `rng_round` on the built pool and with its ids
+     folded into L2-resident rows; the static search with a larger visited
+     table and with the dense one, and the share of true 10-NN the built
+     pools hold.
 
 Each path (4, 4b, 4c, 4d's filtered and layout paths, 4e) runs with the
 launch counts set to 0 just before it and read just after; every kernel it
@@ -1058,8 +1059,9 @@ def _device_us(evt) -> float:
     return float(evt.self_device_time_total)
 
 
-def profiled(label: str, fn, top: int = 8) -> None:
-    """Wall time, device-busy share and the top device-time ops of one call."""
+def profiled(label: str, fn, top: int = 8) -> list:
+    """Log the wall time, device-busy share and top device-time ops of one
+    call; returns the profiler's rows that took device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
