@@ -16,15 +16,19 @@ Phases, each printing its own lines with seconds:
      3.35 TB/s or fp32 operations over 67 TFLOP/s); `topr_merge` also at the
      beam merges' shapes (W = 112, 176, 448, 560), `pairwise_sqdist` also at
      the medoid's M = 1, with cuBLAS SGEMM (TF32 off) timed beside the
-     ground-truth row as the fp32 GEMM yardstick;
+     ground-truth row as the fp32 GEMM yardstick, and `gather_sqdist` beside a
+     second bound, its neighbor rows as gathered; after phase 4's counts are
+     read, `visited_insert` at tables of 512, 1024 and 4096 slots on the
+     phase-4 graph, held exactly against its column loop;
   3. parity at n = 100,000: one fp32 build and one int8 build (searched with
      an fp32 rescore) through the kernels, each again through
      `ops.backend("ref")` with the same draws; recall@10 at ef = 64 over
      1,000 queries agrees within 0.01;
   4. the main path at SIFT1M's shape (`sift-like`, n = 1,000,000, d = 128,
      10,000 queries, the SIFT1M build config): build, brute-force ground
-     truth, hashed-visited search at ef 64 and 128; every kernel must have
-     launched, and recall@10 must clear a floor that catches a broken graph;
+     truth, hashed-visited search at ef 64 and 128 (one visited insert a
+     step, plus one for the entry); every kernel must have launched, and
+     recall@10 must clear a floor that catches a broken graph;
   4b. the dynamic index at int8 traversal with an fp32 rescore tier on the
      same corpus: build on rows [0, 900,000), construct (the int8 re-base),
      insert the last 100,000 rows in 10 batches of 10,000, search, delete
@@ -52,8 +56,9 @@ Phases, each printing its own lines with seconds:
      `compact()` (which re-runs the layout), search filtered again: no
      deleted label, predicate fraction 1.0, no rescore byte on the card;
   5. where the time goes: torch.profiler over one propagation round, one
-     search (with `search_expand`'s summed device time), one insert batch
-     and one dynamic search; `rng_round` on the built pool and with its ids
+     hashed search (with the summed device time of `search_expand` and of
+     `visited_insert`) and the same search with the dense mask, one insert
+     batch and one dynamic search; `rng_round` on the built pool and with its ids
      folded into L2-resident rows; the static search with a larger visited
      table and with the dense one, and the share of true 10-NN the built
      pools hold.
@@ -67,6 +72,7 @@ non-zero; without a card the script exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -100,7 +106,7 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core.labels import pack_ids  # noqa: E402
 from repro_torch.core.pools import stage_request_matrix  # noqa: E402
-from repro_torch.core.search import _table_insert  # noqa: E402
+from repro_torch.core.search import _table_insert, _table_member  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.gather_l2 import gather_sqdist  # noqa: E402
@@ -108,6 +114,7 @@ from repro_torch.kernels.pairwise_l2 import pairwise_sqdist, rowwise_sqdist  # n
 from repro_torch.kernels.rng_round import rng_round  # noqa: E402
 from repro_torch.kernels.search_expand import search_expand  # noqa: E402
 from repro_torch.kernels.topr_merge import topr_merge  # noqa: E402
+from repro_torch.kernels.visited_insert import visited_insert  # noqa: E402
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
@@ -128,7 +135,10 @@ DYN_CFG = DynamicConfig(
 )
 DYN_RECALL_FLOOR = 0.50  # the static fp32 graph reads 0.638 here
 # the kernels each path must launch (launch-count names, kernels/_build.py)
-MAIN_KERNELS = ("rng_round", "topr_merge", "search_expand", "rowwise_sqdist", "pairwise_sqdist")
+MAIN_KERNELS = (
+    "rng_round", "topr_merge", "search_expand", "rowwise_sqdist", "pairwise_sqdist",
+    "visited_insert",
+)
 DYN_KERNELS = (
     "gather_sqdist/int8",
     "rng_round/int8",
@@ -136,12 +146,14 @@ DYN_KERNELS = (
     "pairwise_sqdist/int8",
     "topr_merge",
     "rowwise_sqdist",
+    "visited_insert",
 )
 BF16_KERNELS = (
     "gather_sqdist/bf16",
     "rng_round/bf16",
     "search_expand/bf16+valid",
     "pairwise_sqdist/bf16",
+    "visited_insert",
 )
 # filtered search (4d): fig12's synthetic workload at SIFT1M's shape
 N_LABELS, SELECTIVITIES = 100, (0.5, 0.1, 0.01)
@@ -153,7 +165,9 @@ N_LABELS, SELECTIVITIES = 100, (0.5, 0.1, 0.01)
 # sees a few hundred of them.
 FILTERED_RECALL_FLOOR = {0.5: 0.40, 0.1: 0.40, 0.01: 0.10}
 LAYOUT_Q = 1_000  # dense-mask queries of the layout check (1 GB of mask)
-FILTERED_KERNELS = ("search_expand+filter", "topr_merge", "rowwise_sqdist", "pairwise_sqdist")
+FILTERED_KERNELS = (
+    "search_expand+filter", "topr_merge", "rowwise_sqdist", "pairwise_sqdist", "visited_insert"
+)
 LAYOUT_KERNELS = FILTERED_KERNELS + ("search_expand",)
 TIERED_CFG = DYN_CFG._replace(tier="host", layout="bfs")
 TIERED_KERNELS = (
@@ -164,6 +178,7 @@ TIERED_KERNELS = (
     "pairwise_sqdist/int8",
     "topr_merge",
     "rowwise_sqdist",
+    "visited_insert",
 )
 ROW_PATH = {**dict.fromkeys(MAIN_KERNELS, "main"), **dict.fromkeys(BF16_KERNELS, "bf16")}
 ROW_PATH.update(dict.fromkeys(DYN_KERNELS[:4], "dynamic"))
@@ -173,6 +188,10 @@ ROW_PATH.update({"search_expand+filter": "filtered", "search_expand/int8+valid+f
 BEAM_MERGES = ((64, "main"), (128, "main"), (400, "filtered"), (512, "filtered"))  # (ef, path), W = ef + R
 ROW_PATH.update({f"topr_merge[W={ef + SIFT1M.build.r}]": path for ef, path in BEAM_MERGES})
 ROW_PATH["pairwise_sqdist[M=1]"] = "main"  # the medoid's shape; shares the counter
+# the hashed visited insert at the tables of the main path's ef 64 / 128 and
+# of the filtered path's ef 512: rows that share the `visited_insert` counter
+INSERT_CAPS = {512: "main", 1024: "main", 4096: "filtered"}
+ROW_PATH.update({f"visited_insert[H={h}]": path for h, path in INSERT_CAPS.items()})
 
 
 def log(msg: str) -> None:
@@ -257,6 +276,50 @@ def phase_device() -> None:
 # ---------------------------------------------------------------------------
 
 
+def kernel_row(
+    rows, name, source, replaces, kernel, plain, check, nbytes, nops, library, reps,
+    launches_of=None, yardstick=None, extra_keys=None,
+):
+    """Hold `kernel` against `plain` with `check`, time both (and `library`,
+    where one PyTorch call computes the same function), and append the row.
+    `extra_keys` are further numbers of the row (ms), logged beside it."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err, extra = check(got, want)
+    del got, want
+    ms = cuda_ms(kernel, reps)
+    dev_ms = device_ms(kernel, reps)
+    plain_ms = cuda_ms(plain, max(1, reps // 3))
+    lib_ms = cuda_ms(library, reps) if library is not None else None
+    b_ms, b_by = bound(nbytes, nops)
+    rows.append(
+        {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": 0,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib_ms,
+            **(extra_keys or {}),
+            **({"launches_of": launches_of} if launches_of else {}),
+        }
+    )
+    lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
+    for key, val in (extra_keys or {}).items():
+        extra += f"; {key} {val:.3f}"
+    if yardstick is not None:  # (label, fn): timed beside the row, never called by the port
+        extra += f"; {yardstick[0]} {cuda_ms(yardstick[1], reps):.3f} ms"
+    log(
+        f"[kernels] {name}: {ms:.3f} ms, device {dev_ms:.3f} ms (plain {plain_ms:.3f} ms, "
+        f"library {lib}, bound {b_ms:.3f} ms by {b_by}); max abs err {err:.3g}{extra}"
+    )
+
+
 def check_rng_round(got, want, dists, si, sj) -> tuple[float, int]:
     """dij within tolerance; src equal; dst / kill equal except where the hit
     test's dij sits within the tolerance of its threshold. Returns
@@ -303,43 +366,7 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
     torch.cuda.synchronize()
 
     rows = []
-
-    def measure(
-        name, source, replaces, kernel, plain, check, nbytes, nops, library, reps, launches_of=None,
-        yardstick=None,
-    ):
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        err, extra = check(got, want)
-        del got, want
-        ms = cuda_ms(kernel, reps)
-        dev_ms = device_ms(kernel, reps)
-        plain_ms = cuda_ms(plain, max(1, reps // 3))
-        lib_ms = cuda_ms(library, reps) if library is not None else None
-        b_ms, b_by = bound(nbytes, nops)
-        rows.append(
-            {
-                "name": name,
-                "route": "cuda",
-                "source": source,
-                "replaces": replaces,
-                "launches": 0,
-                "max_abs_err": err,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": b_ms,
-                "bound_by": b_by,
-                "library_ms": lib_ms,
-                **({"launches_of": launches_of} if launches_of else {}),
-            }
-        )
-        lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
-        if yardstick is not None:  # (label, fn): timed beside the row, never called by the port
-            extra += f"; {yardstick[0]} {cuda_ms(yardstick[1], reps):.3f} ms"
-        log(
-            f"[kernels] {name}: {ms:.3f} ms, device {dev_ms:.3f} ms (plain {plain_ms:.3f} ms, "
-            f"library {lib}, bound {b_ms:.3f} ms by {b_by}); max abs err {err:.3g}{extra}"
-        )
+    measure = functools.partial(kernel_row, rows)
 
     def rng_check(got, want):
         err, ties = check_rng_round(got, want, pool.dists, si, sj)
@@ -502,6 +529,9 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         dq = 4 * d if sc is not None else 0  # dequant operations per row, per pair
         sdo = 2 * d * 4 if sc is not None else 0  # the scale / offset bytes
         rows_m = unique_rows(torch.cat([owners, nj]))
+        # the second bound: every neighbor row as gathered, each owner row
+        # once, the indices and the output, from device memory
+        gathered = (m6 + unique_rows(owners)) * d * size + sdo + m6 * 12
         measure(
             f"gather_sqdist/{rung}",
             "src/repro_torch/kernels/csrc/gather_l2.cu",
@@ -513,6 +543,7 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
             m6 * (3 * d + dq),
             None,
             5,
+            extra_keys={"gathered_bound_ms": gathered / PEAK_BYTES_PER_S * 1e3},
         )
 
         def rng_check_q(got, want):
@@ -693,6 +724,73 @@ def path_counts(label: str, counts: dict, needed, rows) -> None:
             row["launches"] = counts[row.get("launches_of", row["name"])]
 
 
+class Copies:
+    """Fresh copies of an in-place kernel's operand, made before any timing:
+    each call hands out the next one."""
+
+    def __init__(self, t: torch.Tensor, n: int):
+        self.copies, self.used = [t.clone() for _ in range(n)], 0
+
+    def __call__(self) -> torch.Tensor:
+        self.used += 1
+        return self.copies[self.used - 1]
+
+
+def insert_rows(graph_ids, q: int, rows, reps: int = 10) -> None:
+    """The visited-insert rows: one beam step's inserts at each table size
+    of INSERT_CAPS, on the phase-4 graph. Q tables are filled to half their
+    slots by inserting the graph rows of random vertices; the step's (Q, R)
+    ids are the graph row of another random vertex with the ids its window
+    already holds set to -1, as the search passes `where(fresh, nbrs, -1)`
+    (the graph's own -1 slots stay). Held exactly against the column loop
+    of `ref.visited_insert_ref`, each call on a fresh copy of the tables."""
+    t0 = time.perf_counter()
+    dev = graph_ids.device
+    n, r = graph_ids.shape
+    g = torch.Generator(dev).manual_seed(SEED + 8)
+    qrows = torch.arange(q, device=dev)[:, None]
+    for h in INSERT_CAPS:
+        table = torch.full((q, h), -1, dtype=torch.int32, device=dev)
+        while float((table >= 0).float().mean()) < 0.5:
+            _table_insert(table, graph_ids[torch.randint(0, n, (q,), generator=g, device=dev)])
+        nbrs = graph_ids[torch.randint(0, n, (q,), generator=g, device=dev)]
+        fresh = (nbrs >= 0) & ~_table_member(table, nbrs)
+        ids = torch.where(fresh, nbrs, -1).contiguous()
+        filled = float((table >= 0).float().mean())
+        done = ref.visited_insert_ref(table.clone(), ids)
+        written = int((done != table).sum())
+        probed = ref.visited_probe_positions(ids, h)[fresh]  # (live, 8) slots
+        slots = int(torch.unique(qrows.expand(-1, r)[fresh][:, None] * h + probed).numel())
+        del done, probed
+        copies = Copies(table, 2 * (reps + 1) + max(1, reps // 3) + 3)
+
+        def check(got, want, h=h):
+            if not torch.equal(got, want):
+                raise AssertionError(f"visited_insert at H={h} differs from the column loop")
+            return 0.0, (
+                f"; tables equal; {filled:.3f} of slots filled, {int(fresh.sum())} fresh ids, "
+                f"{written} written"
+            )
+
+        kernel_row(
+            rows,
+            f"visited_insert[H={h}]",
+            "src/repro_torch/kernels/csrc/visited_insert.cu",
+            "src/repro/core/search.py:105",
+            lambda: visited_insert(copies(), ids),
+            lambda: ref.visited_insert_ref(copies(), ids),
+            check,
+            q * r * 4 + slots * 4 + written * 4,
+            0,
+            None,
+            reps,
+            launches_of="visited_insert",
+        )
+        del table, copies
+        torch.cuda.empty_cache()
+    log(f"[kernels] visited_insert rows done in {time.perf_counter() - t0:.1f}s")
+
+
 def phase_main(x, queries, cfg, rows):
     t0 = time.perf_counter()
     dev = x.device
@@ -706,11 +804,16 @@ def phase_main(x, queries, cfg, rows):
     log(f"[main] ground truth for {queries.shape[0]} queries: {gt_s:.2f}s")
     recalls = {}
     for ef in EF_MAIN:
-        steps = ops.launch_counts().get("search_expand", 0)
+        before = ops.launch_counts()
         res, s = timed(
             lambda: search(x, pool.ids, queries, k=k, ef=ef, visited="hashed", device=dev)
         )
-        steps = ops.launch_counts().get("search_expand", 0) - steps
+        after = ops.launch_counts()
+        steps, inserts = (
+            after.get(name, 0) - before.get(name, 0) for name in ("search_expand", "visited_insert")
+        )
+        if inserts != steps + 1:
+            raise AssertionError(f"ef={ef}: {inserts} visited inserts for {steps} steps")
         ok = (
             res.ids.shape == (queries.shape[0], k)
             and bool(((res.ids >= 0) & (res.ids < n)).all())
@@ -720,7 +823,7 @@ def phase_main(x, queries, cfg, rows):
             raise AssertionError(f"search at ef={ef} returned empty or out-of-range results")
         rec = recalls[ef] = recall_at_k(res.ids, truth)
         log(
-            f"[main] search ef={ef} hashed: {s:.2f}s, {steps} steps, "
+            f"[main] search ef={ef} hashed: {s:.2f}s, {steps} steps, {inserts} visited inserts, "
             f"{queries.shape[0] / s:.0f} QPS, "
             f"mean n_expanded {float(res.n_expanded.float().mean()):.1f}, recall@10 {rec:.4f} "
             f"(floor {RECALL_FLOOR[ef]})"
@@ -729,6 +832,7 @@ def phase_main(x, queries, cfg, rows):
             raise AssertionError(f"recall@10 {rec:.4f} below the floor {RECALL_FLOOR[ef]}")
     counts = ops.launch_counts()
     log(f"[main] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    insert_rows(pool.ids, queries.shape[0], rows)  # after the path's counts are read
     path_counts("main", counts, MAIN_KERNELS, rows)
     log(f"[main] done in {time.perf_counter() - t0:.1f}s")
     return pool, truth, recalls
@@ -1105,11 +1209,17 @@ def phase_profile(x, queries, pool, truth, cfg, idx) -> None:
         "search ef=64 hashed, 10,000 queries",
         lambda: search(x, pool.ids, queries, k=10, ef=64, visited="hashed", device=dev),
     )
-    b3 = [e for e in events if "search_expand" in e.key]
-    log(
-        f"[profile] search_expand (B3) over that search: "
-        f"{sum(_device_us(e) for e in b3) / 1e3:.2f} ms device time in "
-        f"{sum(e.count for e in b3)} launches"
+    for label, key in (("search_expand (B3)", "search_expand"), ("visited_insert", "visited_insert")):
+        hits = [e for e in events if key in e.key]
+        log(
+            f"[profile] {label} over that search: "
+            f"{sum(_device_us(e) for e in hits) / 1e3:.2f} ms device time in "
+            f"{sum(e.count for e in hits)} launches"
+        )
+    # the same search with the exact (Q, N) mask: no table, the same n_expanded
+    profiled(
+        "search ef=64 dense, 10,000 queries",
+        lambda: search(x, pool.ids, queries, k=10, ef=64, visited="dense", device=dev),
     )
     # the dynamic index after compaction (900,000 live): one more insert
     # batch of 10,000 (rows near the corpus, new labels) and one search

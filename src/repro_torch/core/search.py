@@ -89,25 +89,12 @@ def default_visited_cap(ef: int) -> int:
 
 
 def _table_insert(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Insert (Q, R) ids into the (Q, H) open-addressed tables, in place.
-
-    Sequential over the R columns, vectorized over queries, so no two
-    inserts race for one empty slot. An id whose probe window holds neither
-    itself nor an empty slot is dropped (a capacity miss). ids < 0 are
-    skipped. Returns `table`.
+    """Insert (Q, R) ids into the (Q, H) open-addressed tables, in place, in
+    column order (`ops.visited_insert`: one launch on the card). An id whose
+    probe window holds neither itself nor an empty slot is dropped (a
+    capacity miss). ids < 0 are skipped. Returns `table`.
     """
-    h = table.shape[1]
-    for rr in range(ids.shape[1]):
-        v = ids[:, rr]
-        pos = visited_probe_positions(v, h).long()  # (Q, PL)
-        vals = table.gather(1, pos)
-        found = (vals == v[:, None]).any(-1)
-        empty = vals == -1
-        ins = pos.gather(1, empty.to(torch.uint8).argmax(-1, keepdim=True))  # first empty
-        do = (v >= 0) & ~found & empty.any(-1)
-        cur = table.gather(1, ins)[:, 0]
-        table.scatter_(1, ins, torch.where(do, v, cur)[:, None])
-    return table
+    return ops.visited_insert(table, ids.contiguous())
 
 
 def _table_member(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -1,2 +1,3 @@
-"""The five hand-written CUDA kernels of the build-and-search path, their
-plain PyTorch versions (`ref.py`) and the dispatch surface (`ops.py`)."""
+"""The hand-written CUDA kernels of the build, search and dynamic-index
+paths, their plain PyTorch versions (`ref.py`) and the dispatch surface
+(`ops.py`)."""

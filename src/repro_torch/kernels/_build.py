@@ -34,7 +34,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("gather_l2", "pairwise_l2", "rng_round", "search_expand", "topr_merge")
+SOURCES = ("gather_l2", "pairwise_l2", "rng_round", "search_expand", "topr_merge", "visited_insert")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",

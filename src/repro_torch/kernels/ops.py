@@ -1,4 +1,4 @@
-"""Dispatch surface for the six kernels of the build, search and
+"""Dispatch surface for the seven kernels of the build, search and
 dynamic-index paths.
 
 Every distance entry point takes the dataset as a plain (N, D) tensor or a
@@ -33,6 +33,7 @@ from repro_torch.kernels.pairwise_l2 import rowwise_sqdist as _rowwise
 from repro_torch.kernels.rng_round import rng_round as _rng_round
 from repro_torch.kernels.search_expand import search_expand as _search_expand
 from repro_torch.kernels.topr_merge import topr_merge as _topr_merge
+from repro_torch.kernels.visited_insert import visited_insert as _visited_insert
 
 _VALID = ("auto", "ref")
 
@@ -143,3 +144,11 @@ def gather_sqdist(x, ni, nj) -> torch.Tensor:
     if _BACKEND == "ref":
         return ref.gather_sqdist_ref(xd, ni, nj, xs, xo)
     return _gather(xd, ni, nj, xs, xo)
+
+
+def visited_insert(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Insert (Q, R) ids into the (Q, H) hashed visited tables, in place, in
+    column order; returns `table`."""
+    if _BACKEND == "ref":
+        return ref.visited_insert_ref(table, ids)
+    return _visited_insert(table, ids)

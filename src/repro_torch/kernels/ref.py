@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the six kernels of the build, search and
+"""Plain PyTorch versions of the seven kernels of the build, search and
 dynamic-index paths.
 
 Each function computes what its counterpart in the JAX package's
@@ -40,6 +40,7 @@ __all__ = [
     "rng_round_ref",
     "search_expand_ref",
     "topr_merge_ref",
+    "visited_insert_ref",
     "visited_probe_positions",
 ]
 
@@ -152,6 +153,28 @@ def visited_probe_positions(ids: torch.Tensor, h: int) -> torch.Tensor:
     base = ids.clamp_min(0) % h
     offs = torch.arange(HASH_PROBES, dtype=base.dtype, device=base.device)
     return (base[..., None] + offs) % h
+
+
+def visited_insert_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Insert (Q, R) ids into the (Q, H) open-addressed tables, in place.
+
+    Sequential over the R columns, vectorized over queries, so no two
+    inserts race for one empty slot. An id whose probe window holds neither
+    itself nor an empty slot is dropped (a capacity miss). ids < 0 are
+    skipped. Returns `table`.
+    """
+    h = table.shape[1]
+    for rr in range(ids.shape[1]):
+        v = ids[:, rr]
+        pos = visited_probe_positions(v, h).long()  # (Q, PL)
+        vals = table.gather(1, pos)
+        found = (vals == v[:, None]).any(-1)
+        empty = vals == -1
+        ins = pos.gather(1, empty.to(torch.uint8).argmax(-1, keepdim=True))  # first empty
+        do = (v >= 0) & ~found & empty.any(-1)
+        cur = table.gather(1, ins)[:, 0]
+        table.scatter_(1, ins, torch.where(do, v, cur)[:, None])
+    return table
 
 
 def search_expand_ref(

@@ -17,10 +17,15 @@ group), with labels on the int32 sign bit; the adversarial merge rows of
 `merge_cases` at W = 1 ... 8192 with r below and above W (every group width
 of 1 to 1024 threads a row, packed and unpacked); and rng_round at each
 storage rung with rows copied by bulk copies (D = 128), plainly (D = 33) and
-into a row buffer that leaves one to four blocks an SM (D = 960). Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
+into a row buffer that leaves one to four blocks an SM (D = 960); gather_sqdist
+on the re-base's runs of equal owners at 1 to 8 quads a lane and past them
+(D = 16 ... 1040), with runs that straddle the groups' ranges and batches,
+N = 1, and the same pairs shuffled (bitwise the sorted result); and the
+visited insert at H = 1, 3, 8, 512, 4096 and R = 1, 48, bitwise the column
+loop. Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
 summation order; the dequant itself is bitwise the plain version's);
 pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition cancellation);
-topr_merge and every integer output exactly, except rng_round's hit test
+topr_merge, the visited tables and every integer output exactly, except rng_round's hit test
 within that tolerance of its threshold.
 """
 
@@ -53,6 +58,7 @@ from repro_torch.kernels.pairwise_l2 import pairwise_sqdist, rowwise_sqdist
 from repro_torch.kernels.rng_round import rng_round
 from repro_torch.kernels.search_expand import search_expand
 from repro_torch.kernels.topr_merge import topr_merge
+from repro_torch.kernels.visited_insert import visited_insert
 
 pytestmark = pytest.mark.cuda
 
@@ -282,6 +288,60 @@ def test_gather_sqdist_kernel(dev, precision, n, d, m):
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     with pytest.raises(ValueError, match="no rows"):
         gather_sqdist(data[:0], ni, nj, scale, offset)
+
+
+# the re-base's pairs: owner v repeated r times beside v's pool ids. D = 16,
+# 64, 128, 960 take the run-aware kernel at 1 to 8 quads a lane (idle lanes
+# at D = 16), D = 33 and 1040 the one-pair-a-group kernel; r = 7 runs
+# straddle the 4-pair batches, and every case's runs straddle the groups'
+# ranges; N = 1 clamps every index to row 0
+REBASE_EDGES = [(3000, 128, 48), (1001, 33, 48), (500, 960, 48), (5003, 128, 7),
+                (2000, 64, 48), (70_001, 16, 3), (300, 1040, 5), (1, 128, 5), (1, 33, 7)]
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+@pytest.mark.parametrize("n,d,r", REBASE_EDGES)
+def test_gather_sqdist_kernel_owner_runs(dev, precision, n, d, r):
+    g = torch.Generator(dev).manual_seed(n + d + r)
+    data, scale, offset = _store(synthetic.vector_dataset(g, n, d), precision)
+    ni = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(r)
+    nj = torch.randint(-2, n + 2, (n * r,), generator=g, device=dev, dtype=torch.int32)
+    name = "gather_sqdist" + ("" if precision == "fp32" else "/" + precision)
+    got = _launched(name, lambda: gather_sqdist(data, ni, nj, scale, offset))
+    want = ref.gather_sqdist_ref(data, ni, nj, scale, offset)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    # any ni order: a pair's sum does not depend on its neighbors in the batch
+    perm = torch.randperm(n * r, generator=g, device=dev)
+    shuffled = gather_sqdist(data, ni[perm].contiguous(), nj[perm].contiguous(), scale, offset)
+    assert torch.equal(shuffled, got[perm])
+
+
+def _insert_cases(rng, q: int, h: int, r: int) -> np.ndarray:
+    """(Q, R) int32 ids for the visited insert: -1s, repeats within a row
+    and across rows, and rows of ids congruent mod H (one window, filled
+    past its 8 slots, so later inserts are dropped)."""
+    ids = rng.integers(-1, 20 * h + 40, (q, r)).astype(np.int32)
+    ids[:, r // 2 :] = ids[:, : r - r // 2]  # repeats within a row
+    ids[1::4] = ids[::4][: len(ids[1::4])]  # repeats across rows
+    ids[2::4] = (rng.integers(0, h) + h * np.arange(r, dtype=np.int64)).astype(np.int32)
+    return ids
+
+
+@pytest.mark.parametrize("r", [1, 48])
+@pytest.mark.parametrize("h", [1, 3, 8, 512, 4096])
+def test_visited_insert_kernel_is_exact(dev, h, r):
+    rng = np.random.default_rng(100 * h + r)
+    q = 301  # not a multiple of a block's 32 queries
+    table = np.full((q, h), -1, np.int32)
+    prefill = rng.random((q, h)) < 0.25
+    table[prefill] = rng.integers(0, 20 * h, int(prefill.sum()))
+    got = torch.from_numpy(table).to(dev)
+    want = got.clone()
+    for _ in range(3):  # steps in a row fill the tables past their windows
+        ids = torch.from_numpy(_insert_cases(rng, q, h, r)).to(dev)
+        assert _launched("visited_insert", lambda: visited_insert(got, ids)) is got
+        ref.visited_insert_ref(want, ids)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("precision", ("bf16", "int8"))

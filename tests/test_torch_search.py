@@ -6,9 +6,13 @@ query->neighbor distance (fp32 sums in another order, max rel. error ~4e-7),
 so ids, distances and n_expanded must agree except where two candidates tie
 within that error: at least 98% of queries give identical ids and
 n_expanded, and every returned distance agrees to rtol 1e-5 where the ids
-do. The visited table is integer work: `_table_insert` equals the
-reference exactly, and hashed search with visited_cap >= N equals dense.
+do. The visited table is integer work: `_table_insert` and the column loop
+of `ref.visited_insert_ref` equal the reference exactly (on the CPU the
+insert never reaches the kernel launcher), and hashed search with
+visited_cap >= N equals dense.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +36,7 @@ from repro_torch.core.search import (
     medoid,
     search,
 )
+from repro_torch.kernels import _build, ops, ref
 
 # the suite runs in parallel workers: one intra-op thread each keeps torch
 # from oversubscribing the cores the JAX tests share
@@ -99,6 +104,52 @@ def test_table_insert_equals_reference_exactly(h):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         member = _table_member(got, torch.from_numpy(ids)).numpy()
         np.testing.assert_array_equal(member, np.asarray(j_table_member(want, jnp.asarray(ids))))
+
+
+def _insert_cases(rng, q: int, h: int, r: int) -> np.ndarray:
+    """(Q, R) int32 ids for the visited insert: -1s, repeats within a row
+    and across rows, and rows of ids congruent mod H (one window, filled
+    past its 8 slots, so later inserts are dropped)."""
+    ids = rng.integers(-1, 20 * h + 40, (q, r)).astype(np.int32)
+    ids[:, r // 2 :] = ids[:, : r - r // 2]  # repeats within a row
+    ids[1::4] = ids[::4][: len(ids[1::4])]  # repeats across rows
+    ids[2::4] = (rng.integers(0, h) + h * np.arange(r, dtype=np.int64)).astype(np.int32)
+    return ids
+
+
+@pytest.mark.parametrize("h", [1, 3, 8, 64])
+def test_visited_insert_ref_equals_reference_exactly(h):
+    rng = np.random.default_rng(1000 + h)
+    table = np.full((12, h), -1, np.int32)
+    prefill = rng.random((12, h)) < 0.25
+    table[prefill] = rng.integers(0, 20 * h, int(prefill.sum()))
+    want = jnp.asarray(table)
+    got = torch.from_numpy(table.copy())
+    for _ in range(3):  # repeated steps fill the tables past their windows
+        ids = _insert_cases(rng, 12, h, 16)
+        want = jax.jit(j_table_insert)(want, jnp.asarray(ids))
+        out = ref.visited_insert_ref(got, torch.from_numpy(ids))
+        assert out is got
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", ["auto", "ref"])
+def test_table_insert_on_the_cpu_never_launches_a_kernel(monkeypatch, name):
+    def refuse(kernel, *args):
+        raise AssertionError(f"{kernel} reached the kernel launcher from a CPU table")
+
+    monkeypatch.setattr(_build, "launch", refuse)
+    rng = np.random.default_rng(7)
+    table = torch.full((10, 32), -1, dtype=torch.int32)
+    want = table.clone()
+    scope = ops.backend("ref") if name == "ref" else contextlib.nullcontext()
+    with scope:
+        for _ in range(3):
+            ids = torch.from_numpy(_insert_cases(rng, 10, 32, 24))
+            # a column slice, as the search's entry insert and the tests pass
+            assert _table_insert(table, ids[:, ::2]) is table
+            ref.visited_insert_ref(want, ids[:, ::2].contiguous())
+    assert torch.equal(table, want)
 
 
 def test_search_rejects_what_is_not_ported(graph):

@@ -12,13 +12,18 @@ line: the tree and the event-timed milliseconds of each row whose name
 contains `--match` (every row by default). With `--device-time` every time
 of the phase is the profiler's device time instead: kernels of a few tens
 of microseconds, launched back to back from Python, read the host's launch
-rate on CUDA events. Run the two checkouts in separate processes within one
-call, alternating (A, B, B, A).
+rate on CUDA events. With `--digest` the line also holds a SHA-256 of
+`gather_sqdist`'s output at each storage rung on the re-base's pairs (each
+of 900,000 owners repeated 48 times beside random neighbors, seed 0), in
+order and shuffled: equal digests of two checkouts mean bitwise-equal
+kernels there. Run the two checkouts in separate processes within one call,
+alternating (A, B, B, A).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -31,6 +36,7 @@ def main() -> None:
     ap.add_argument("--tree", required=True, help="checkout whose chip_smoke.py to run")
     ap.add_argument("--match", default="", help="keep the rows whose name contains this")
     ap.add_argument("--device-time", action="store_true", help="time rows by device time")
+    ap.add_argument("--digest", action="store_true", help="hash gather_sqdist's re-base output")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_rows: torch.cuda.is_available() is False; this script needs a card")
@@ -51,7 +57,30 @@ def main() -> None:
     rows = cs.phase_kernels(x, queries, Draws(cs.SEED + 1, dev), SIFT1M.build)
     ms = {r["name"]: r["ms"] for r in rows if args.match in r["name"]}
     clock = "device" if args.device_time else "event"
-    print(json.dumps({"tree": str(tree), "clock": clock, "ms": ms}), flush=True)
+    line = {"tree": str(tree), "clock": clock, "ms": ms}
+    if args.digest:
+        line["digest"] = gather_digests(x, dev)
+    print(json.dumps(line), flush=True)
+
+
+def gather_digests(x, dev) -> dict:
+    """SHA-256 (first 16 hex digits) of `gather_sqdist` on the re-base's
+    pairs at each rung, in order and under one shuffle of the pairs."""
+    from repro_torch.core import encode
+    from repro_torch.kernels.gather_l2 import gather_sqdist
+
+    g = torch.Generator(dev).manual_seed(0)
+    n, r = 900_000, 48
+    ni = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(r)
+    nj = torch.randint(0, x.shape[0], (n * r,), generator=g, device=dev, dtype=torch.int32)
+    perm = torch.randperm(n * r, generator=g, device=dev)
+    out = {}
+    for rung in ("fp32", "bf16", "int8"):
+        data, sc, of = encode(x, rung)
+        for order, a, b in (("runs", ni, nj), ("shuffled", ni[perm], nj[perm])):
+            got = gather_sqdist(data, a.contiguous(), b.contiguous(), sc, of).cpu().numpy()
+            out[f"{rung}/{order}"] = hashlib.sha256(got.tobytes()).hexdigest()[:16]
+    return out
 
 
 if __name__ == "__main__":
