@@ -17,9 +17,11 @@ Phases, each printing its own lines with seconds:
      beam merges' shapes (W = 112, 176, 448, 560), `pairwise_sqdist` also at
      the medoid's M = 1, with cuBLAS SGEMM (TF32 off) timed beside the
      ground-truth row as the fp32 GEMM yardstick, and `gather_sqdist` beside a
-     second bound, its neighbor rows as gathered; after phase 4's counts are
-     read, `visited_insert` at tables of 512, 1024 and 4096 slots on the
-     phase-4 graph, held exactly against its column loop;
+     second bound on its log line, its neighbor rows as gathered; after
+     phase 4's counts are read, `visited_insert` on every insert of one
+     hashed search of the phase-4 graph at ef 64, 128 and 512 (tables of
+     512, 1024 and 4096 slots), replayed and held exactly against its column
+     loop after each launch;
   3. parity at n = 100,000: one fp32 build and one int8 build (searched with
      an fp32 rescore) through the kernels, each again through
      `ops.backend("ref")` with the same draws; recall@10 at ef = 64 over
@@ -73,6 +75,7 @@ non-zero; without a card the script exits non-zero before printing a result.
 from __future__ import annotations
 
 import functools
+import importlib
 import json
 import math
 import subprocess
@@ -106,7 +109,7 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core.labels import pack_ids  # noqa: E402
 from repro_torch.core.pools import stage_request_matrix  # noqa: E402
-from repro_torch.core.search import _table_insert, _table_member  # noqa: E402
+from repro_torch.core.search import _table_insert, default_visited_cap  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.gather_l2 import gather_sqdist  # noqa: E402
@@ -115,6 +118,9 @@ from repro_torch.kernels.rng_round import rng_round  # noqa: E402
 from repro_torch.kernels.search_expand import search_expand  # noqa: E402
 from repro_torch.kernels.topr_merge import topr_merge  # noqa: E402
 from repro_torch.kernels.visited_insert import visited_insert  # noqa: E402
+
+# the module (the package exports its `search` function under the same name)
+search_mod = importlib.import_module("repro_torch.core.search")
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
@@ -188,10 +194,13 @@ ROW_PATH.update({"search_expand+filter": "filtered", "search_expand/int8+valid+f
 BEAM_MERGES = ((64, "main"), (128, "main"), (400, "filtered"), (512, "filtered"))  # (ef, path), W = ef + R
 ROW_PATH.update({f"topr_merge[W={ef + SIFT1M.build.r}]": path for ef, path in BEAM_MERGES})
 ROW_PATH["pairwise_sqdist[M=1]"] = "main"  # the medoid's shape; shares the counter
-# the hashed visited insert at the tables of the main path's ef 64 / 128 and
-# of the filtered path's ef 512: rows that share the `visited_insert` counter
-INSERT_CAPS = {512: "main", 1024: "main", 4096: "filtered"}
-ROW_PATH.update({f"visited_insert[H={h}]": path for h, path in INSERT_CAPS.items()})
+# the hashed visited insert on the inserts of real searches at the main
+# path's ef 64 / 128 and the filtered path's ef 512 (tables of 512, 1024 and
+# 4096 slots): rows that share the `visited_insert` counter
+INSERT_EFS = {64: "main", 128: "main", 512: "filtered"}
+ROW_PATH.update(
+    {f"visited_insert[H={default_visited_cap(ef)}]": path for ef, path in INSERT_EFS.items()}
+)
 
 
 def log(msg: str) -> None:
@@ -278,20 +287,21 @@ def phase_device() -> None:
 
 def kernel_row(
     rows, name, source, replaces, kernel, plain, check, nbytes, nops, library, reps,
-    launches_of=None, yardstick=None, extra_keys=None,
+    launches_of=None, yardstick=None, calls=1,
 ):
     """Hold `kernel` against `plain` with `check`, time both (and `library`,
     where one PyTorch call computes the same function), and append the row.
-    `extra_keys` are further numbers of the row (ms), logged beside it."""
+    A call of `kernel` that makes `calls` launches (`nbytes` and `nops`
+    counting all of them) gives its times and bound a launch."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err, extra = check(got, want)
     del got, want
-    ms = cuda_ms(kernel, reps)
-    dev_ms = device_ms(kernel, reps)
-    plain_ms = cuda_ms(plain, max(1, reps // 3))
-    lib_ms = cuda_ms(library, reps) if library is not None else None
-    b_ms, b_by = bound(nbytes, nops)
+    ms = cuda_ms(kernel, reps) / calls
+    dev_ms = device_ms(kernel, reps) / calls
+    plain_ms = cuda_ms(plain, max(1, reps // 3)) / calls
+    lib_ms = cuda_ms(library, reps) / calls if library is not None else None
+    b_ms, b_by = bound(nbytes / calls, nops / calls)
     rows.append(
         {
             "name": name,
@@ -305,13 +315,10 @@ def kernel_row(
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": lib_ms,
-            **(extra_keys or {}),
             **({"launches_of": launches_of} if launches_of else {}),
         }
     )
     lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
-    for key, val in (extra_keys or {}).items():
-        extra += f"; {key} {val:.3f}"
     if yardstick is not None:  # (label, fn): timed beside the row, never called by the port
         extra += f"; {yardstick[0]} {cuda_ms(yardstick[1], reps):.3f} ms"
     log(
@@ -529,21 +536,23 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         dq = 4 * d if sc is not None else 0  # dequant operations per row, per pair
         sdo = 2 * d * 4 if sc is not None else 0  # the scale / offset bytes
         rows_m = unique_rows(torch.cat([owners, nj]))
-        # the second bound: every neighbor row as gathered, each owner row
-        # once, the indices and the output, from device memory
+        # the second bound, on the log line only: every neighbor row as
+        # gathered, each owner row once, the indices and the output
         gathered = (m6 + unique_rows(owners)) * d * size + sdo + m6 * 12
+        gathered_ms = gathered / PEAK_BYTES_PER_S * 1e3
         measure(
             f"gather_sqdist/{rung}",
             "src/repro_torch/kernels/csrc/gather_l2.cu",
             "src/repro/kernels/gather_l2.py:52",
             lambda: gather_sqdist(data, owners, nj, sc, of),
             lambda: ref.gather_sqdist_ref(data, owners, nj, sc, of),
-            lambda got, want: (close(got, want, f"gather_sqdist/{rung}"), ""),
+            lambda got, want, g_ms=gathered_ms: (
+                close(got, want, f"gather_sqdist/{rung}"), f"; gathered-rows bound {g_ms:.3f} ms"
+            ),
             rows_m * d * size + sdo + m6 * 12,
             m6 * (3 * d + dq),
             None,
             5,
-            extra_keys={"gathered_bound_ms": gathered / PEAK_BYTES_PER_S * 1e3},
         )
 
         def rng_check_q(got, want):
@@ -736,57 +745,96 @@ class Copies:
         return self.copies[self.used - 1]
 
 
-def insert_rows(graph_ids, q: int, rows, reps: int = 10) -> None:
-    """The visited-insert rows: one beam step's inserts at each table size
-    of INSERT_CAPS, on the phase-4 graph. Q tables are filled to half their
-    slots by inserting the graph rows of random vertices; the step's (Q, R)
-    ids are the graph row of another random vertex with the ids its window
-    already holds set to -1, as the search passes `where(fresh, nbrs, -1)`
-    (the graph's own -1 slots stay). Held exactly against the column loop
-    of `ref.visited_insert_ref`, each call on a fresh copy of the tables."""
-    t0 = time.perf_counter()
-    dev = graph_ids.device
-    n, r = graph_ids.shape
-    g = torch.Generator(dev).manual_seed(SEED + 8)
-    qrows = torch.arange(q, device=dev)[:, None]
-    for h in INSERT_CAPS:
-        table = torch.full((q, h), -1, dtype=torch.int32, device=dev)
-        while float((table >= 0).float().mean()) < 0.5:
-            _table_insert(table, graph_ids[torch.randint(0, n, (q,), generator=g, device=dev)])
-        nbrs = graph_ids[torch.randint(0, n, (q,), generator=g, device=dev)]
-        fresh = (nbrs >= 0) & ~_table_member(table, nbrs)
-        ids = torch.where(fresh, nbrs, -1).contiguous()
-        filled = float((table >= 0).float().mean())
-        done = ref.visited_insert_ref(table.clone(), ids)
-        written = int((done != table).sum())
-        probed = ref.visited_probe_positions(ids, h)[fresh]  # (live, 8) slots
-        slots = int(torch.unique(qrows.expand(-1, r)[fresh][:, None] * h + probed).numel())
-        del done, probed
-        copies = Copies(table, 2 * (reps + 1) + max(1, reps // 3) + 3)
+def record_inserts(x, graph_ids, queries, ef: int) -> list:
+    """The (Q, R) ids of every visited insert of one hashed search at `ef`
+    (the entry's, then one a step), recorded by a hook on `_table_insert`."""
+    calls, real = [], search_mod._table_insert
 
-        def check(got, want, h=h):
+    def hook(table, ids):
+        calls.append(ids.contiguous().clone())
+        return real(table, ids)
+
+    search_mod._table_insert = hook
+    try:
+        search(x, graph_ids, queries, k=10, ef=ef, visited="hashed", device=x.device)
+    finally:
+        search_mod._table_insert = real
+    return calls
+
+
+def insert_rows(x, graph_ids, queries, rows, reps: int = 3) -> None:
+    """The visited-insert rows, on the traffic of real searches: each row
+    replays every insert that one hashed search of the phase-4 graph made at
+    its ef (INSERT_EFS), from empty tables of `default_visited_cap(ef)`
+    slots. The replay is held exactly against the column loop of
+    `ref.visited_insert_ref` after every launch (and its end in the row's
+    own check); times and bound are a launch's, the mean over the search."""
+    t0 = time.perf_counter()
+    dev = x.device
+    q = queries.shape[0]
+    for ef in INSERT_EFS:
+        h = default_visited_cap(ef)
+        calls = record_inserts(x, graph_ids, queries, ef)
+        # the traffic, launch by launch: live (fresh) ids, the tables' fill
+        # before the launch, the slots it writes, the distinct slots its
+        # windows probe (the bytes it must move)
+        got = torch.full((q, h), -1, dtype=torch.int32, device=dev)
+        want = got.clone()
+        qrows = torch.arange(q, device=dev)[:, None, None]
+        live = written = probed = 0
+        fill = []
+        for t, ids in enumerate(calls):
+            fresh = ids >= 0
+            live += int(fresh.sum()) if t else 0  # the entry's insert is no step
+            held = int((got >= 0).sum())
+            fill.append(held / (q * h))
+            pos = qrows * h + ref.visited_probe_positions(ids, h)
+            probed += int(torch.unique(pos[fresh]).numel())
+            visited_insert(got, ids)
+            ref.visited_insert_ref(want, ids)
+            if not torch.equal(got, want):
+                raise AssertionError(f"visited_insert at H={h}: launch {t} differs from the loop")
+            written += int((got >= 0).sum()) - held
+        steps, r = len(calls) - 1, calls[-1].shape[1]
+        traffic = (
+            f"{steps} steps, {live / (steps * q):.2f} live ids a query a step of {r} "
+            f"({live / (steps * q * r):.3f}), tables {sum(fill) / len(fill):.3f} full before a "
+            f"launch on average and {float((got >= 0).float().mean()):.3f} at the end, "
+            f"{written} slots written"
+        )
+        log(f"[kernels] visited_insert traffic at ef={ef}, H={h}: {traffic}")
+        nbytes = sum(ids.numel() for ids in calls) * 4 + probed * 4 + written * 4
+        del got, want
+        empty = torch.full((q, h), -1, dtype=torch.int32, device=dev)
+        copies = Copies(empty, 2 * (reps + 1) + max(1, reps // 3) + 3)
+
+        def replay(insert, calls=calls):
+            table = copies()
+            for ids in calls:
+                insert(table, ids)
+            return table
+
+        def check(got, want, h=h, n=len(calls)):
             if not torch.equal(got, want):
                 raise AssertionError(f"visited_insert at H={h} differs from the column loop")
-            return 0.0, (
-                f"; tables equal; {filled:.3f} of slots filled, {int(fresh.sum())} fresh ids, "
-                f"{written} written"
-            )
+            return 0.0, f"; tables equal after each of {n} launches"
 
         kernel_row(
             rows,
             f"visited_insert[H={h}]",
             "src/repro_torch/kernels/csrc/visited_insert.cu",
             "src/repro/core/search.py:105",
-            lambda: visited_insert(copies(), ids),
-            lambda: ref.visited_insert_ref(copies(), ids),
+            lambda: replay(visited_insert),
+            lambda: replay(ref.visited_insert_ref),
             check,
-            q * r * 4 + slots * 4 + written * 4,
+            nbytes,
             0,
             None,
             reps,
             launches_of="visited_insert",
+            calls=len(calls),
         )
-        del table, copies
+        del calls, empty, copies
         torch.cuda.empty_cache()
     log(f"[kernels] visited_insert rows done in {time.perf_counter() - t0:.1f}s")
 
@@ -832,7 +880,7 @@ def phase_main(x, queries, cfg, rows):
             raise AssertionError(f"recall@10 {rec:.4f} below the floor {RECALL_FLOOR[ef]}")
     counts = ops.launch_counts()
     log(f"[main] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    insert_rows(pool.ids, queries.shape[0], rows)  # after the path's counts are read
+    insert_rows(x, pool.ids, queries, rows)  # after the path's counts are read
     path_counts("main", counts, MAIN_KERNELS, rows)
     log(f"[main] done in {time.perf_counter() - t0:.1f}s")
     return pool, truth, recalls

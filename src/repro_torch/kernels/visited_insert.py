@@ -6,12 +6,16 @@ hand-written kernel of `csrc/visited_insert.cu`; CPU tensors run
 `ref.visited_insert_ref`, the column loop, and the table the kernel leaves
 is bitwise the loop's.
 
-Bound: each query's R inserts are a chain (an insert changes what the next
-one sees), so the kernel waits on R table reads from L2 in a row, not on
-its bytes. Design: one 8-lane group a query, lane l reading slot l of the
-probe window; two ballots give found / empty, the first empty slot in probe
-order takes the id, and a warp barrier orders that write before the next
-column's reads, which go through L2.
+Design: a query's columns depend on each other only through the table,
+and the writes of earlier columns are known to the query's lanes as they
+are made. So one 8-lane group a query loads its probe windows for 16
+columns at once (lane l: slot l), then takes the columns in order in
+registers: two ballots give found / empty, the first empty slot in probe
+order takes the id, and each lane updates its loaded values of the later
+columns whose slot was written. The 4 groups of a warp step through the
+columns together. The next 16 columns' loads follow a warp barrier and go
+through L2, so they see the writes: at R = 48 a query waits on 3 rounds of
+loads, not 48.
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ into a row buffer that leaves one to four blocks an SM (D = 960); gather_sqdist
 on the re-base's runs of equal owners at 1 to 8 quads a lane and past them
 (D = 16 ... 1040), with runs that straddle the groups' ranges and batches,
 N = 1, and the same pairs shuffled (bitwise the sorted result); and the
-visited insert at H = 1, 3, 8, 512, 4096 and R = 1, 48, bitwise the column
+visited insert at H = 1, 3, 8, 512, 4096 and R = 1, 20, 48, bitwise the column
 loop. Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
 summation order; the dequant itself is bitwise the plain version's);
 pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition cancellation);
@@ -316,7 +316,7 @@ def test_gather_sqdist_kernel_owner_runs(dev, precision, n, d, r):
     assert torch.equal(shuffled, got[perm])
 
 
-def _insert_cases(rng, q: int, h: int, r: int) -> np.ndarray:
+def insert_cases(rng, q: int, h: int, r: int) -> np.ndarray:
     """(Q, R) int32 ids for the visited insert: -1s, repeats within a row
     and across rows, and rows of ids congruent mod H (one window, filled
     past its 8 slots, so later inserts are dropped)."""
@@ -327,7 +327,7 @@ def _insert_cases(rng, q: int, h: int, r: int) -> np.ndarray:
     return ids
 
 
-@pytest.mark.parametrize("r", [1, 48])
+@pytest.mark.parametrize("r", [1, 20, 48])  # 20: a part batch of 16 columns
 @pytest.mark.parametrize("h", [1, 3, 8, 512, 4096])
 def test_visited_insert_kernel_is_exact(dev, h, r):
     rng = np.random.default_rng(100 * h + r)
@@ -338,7 +338,7 @@ def test_visited_insert_kernel_is_exact(dev, h, r):
     got = torch.from_numpy(table).to(dev)
     want = got.clone()
     for _ in range(3):  # steps in a row fill the tables past their windows
-        ids = torch.from_numpy(_insert_cases(rng, q, h, r)).to(dev)
+        ids = torch.from_numpy(insert_cases(rng, q, h, r)).to(dev)
         assert _launched("visited_insert", lambda: visited_insert(got, ids)) is got
         ref.visited_insert_ref(want, ids)
         assert torch.equal(got, want)

@@ -37,6 +37,7 @@ from repro_torch.core.search import (
     search,
 )
 from repro_torch.kernels import _build, ops, ref
+from test_torch_cuda import insert_cases
 
 # the suite runs in parallel workers: one intra-op thread each keeps torch
 # from oversubscribing the cores the JAX tests share
@@ -106,17 +107,6 @@ def test_table_insert_equals_reference_exactly(h):
         np.testing.assert_array_equal(member, np.asarray(j_table_member(want, jnp.asarray(ids))))
 
 
-def _insert_cases(rng, q: int, h: int, r: int) -> np.ndarray:
-    """(Q, R) int32 ids for the visited insert: -1s, repeats within a row
-    and across rows, and rows of ids congruent mod H (one window, filled
-    past its 8 slots, so later inserts are dropped)."""
-    ids = rng.integers(-1, 20 * h + 40, (q, r)).astype(np.int32)
-    ids[:, r // 2 :] = ids[:, : r - r // 2]  # repeats within a row
-    ids[1::4] = ids[::4][: len(ids[1::4])]  # repeats across rows
-    ids[2::4] = (rng.integers(0, h) + h * np.arange(r, dtype=np.int64)).astype(np.int32)
-    return ids
-
-
 @pytest.mark.parametrize("h", [1, 3, 8, 64])
 def test_visited_insert_ref_equals_reference_exactly(h):
     rng = np.random.default_rng(1000 + h)
@@ -126,7 +116,7 @@ def test_visited_insert_ref_equals_reference_exactly(h):
     want = jnp.asarray(table)
     got = torch.from_numpy(table.copy())
     for _ in range(3):  # repeated steps fill the tables past their windows
-        ids = _insert_cases(rng, 12, h, 16)
+        ids = insert_cases(rng, 12, h, 16)
         want = jax.jit(j_table_insert)(want, jnp.asarray(ids))
         out = ref.visited_insert_ref(got, torch.from_numpy(ids))
         assert out is got
@@ -145,7 +135,7 @@ def test_table_insert_on_the_cpu_never_launches_a_kernel(monkeypatch, name):
     scope = ops.backend("ref") if name == "ref" else contextlib.nullcontext()
     with scope:
         for _ in range(3):
-            ids = torch.from_numpy(_insert_cases(rng, 10, 32, 24))
+            ids = torch.from_numpy(insert_cases(rng, 10, 32, 24))
             # a column slice, as the search's entry insert and the tests pass
             assert _table_insert(table, ids[:, ::2]) is table
             ref.visited_insert_ref(want, ids[:, ::2].contiguous())

@@ -16,8 +16,10 @@ rate on CUDA events. With `--digest` the line also holds a SHA-256 of
 `gather_sqdist`'s output at each storage rung on the re-base's pairs (each
 of 900,000 owners repeated 48 times beside random neighbors, seed 0), in
 order and shuffled: equal digests of two checkouts mean bitwise-equal
-kernels there. Run the two checkouts in separate processes within one call,
-alternating (A, B, B, A).
+kernels there. With `--inserts` the rows are instead the visited-insert rows
+of phase 4: the SIFT1M build of `chip_smoke.py` (seed 2), then every insert
+of one hashed search at ef 64, 128 and 512, replayed and timed. Run the two
+checkouts in separate processes within one call, alternating (A, B, B, A).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ def main() -> None:
     ap.add_argument("--match", default="", help="keep the rows whose name contains this")
     ap.add_argument("--device-time", action="store_true", help="time rows by device time")
     ap.add_argument("--digest", action="store_true", help="hash gather_sqdist's re-base output")
+    ap.add_argument("--inserts", action="store_true", help="the visited-insert rows only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_rows: torch.cuda.is_available() is False; this script needs a card")
@@ -44,7 +47,7 @@ def main() -> None:
     sys.path[:0] = [str(tree), str(tree / "src")]
     import chip_smoke as cs
     from repro_torch.configs.grnnd_paper import SIFT1M
-    from repro_torch.core import Draws
+    from repro_torch.core import Draws, build_graph
     from repro_torch.data import synthetic
 
     cs.phase_device()
@@ -54,7 +57,12 @@ def main() -> None:
     g = torch.Generator(dev).manual_seed(cs.SEED)
     x = synthetic.make_preset(g, "sift-like", SIFT1M.n)
     queries = synthetic.queries_from(g, x, SIFT1M.n_queries)
-    rows = cs.phase_kernels(x, queries, Draws(cs.SEED + 1, dev), SIFT1M.build)
+    if args.inserts:
+        pool = build_graph(x, SIFT1M.build, draws=Draws(cs.SEED + 2, dev), device=dev)
+        rows = []
+        cs.insert_rows(x, pool.ids, queries, rows)
+    else:
+        rows = cs.phase_kernels(x, queries, Draws(cs.SEED + 1, dev), SIFT1M.build)
     ms = {r["name"]: r["ms"] for r in rows if args.match in r["name"]}
     clock = "device" if args.device_time else "event"
     line = {"tree": str(tree), "clock": clock, "ms": ms}
