@@ -11,7 +11,9 @@ Phases, each printing its own lines with seconds:
      all started together);
   2. each hand-written kernel, and each storage (bf16, int8), tombstone and
      label-filter variant, against its plain PyTorch version on the same CUDA inputs, at
-     the shapes the SIFT1M-shaped paths give it, with kernel / plain /
+     the shapes the SIFT1M-shaped paths give it (`gather_sqdist` also at fp32
+     on the sharded build's merge pairs, `search_expand` also as one shard
+     of the corpus-sharded search runs it), with kernel / plain /
      library times and the least time the card could take (bytes over
      3.35 TB/s or fp32 operations over 67 TFLOP/s); `topr_merge` also at the
      beam merges' shapes (W = 112, 176, 448, 560), `pairwise_sqdist` also at
@@ -26,6 +28,11 @@ Phases, each printing its own lines with seconds:
      an fp32 rescore) through the kernels, each again through
      `ops.backend("ref")` with the same draws; recall@10 at ef = 64 over
      1,000 queries agrees within 0.01;
+  3b. the sorted-order ablation (paper Alg. 2, Fig. 7,
+     `benchmarks/fig7_order.py`), run after phase 4, whose truth it uses:
+     an ascending and a descending build at phase 4's shape and build
+     config, build seconds and recall@10 at ef 64 (hashed) beside the
+     disordered build's, each above a floor that catches a broken graph;
   4. the main path at SIFT1M's shape (`sift-like`, n = 1,000,000, d = 128,
      10,000 queries, the SIFT1M build config): build, brute-force ground
      truth, hashed-visited search at ef 64 and 128 (one visited insert a
@@ -57,6 +64,21 @@ Phases, each printing its own lines with seconds:
      search with the device fp32 tier as `rescore`, delete 100,000 labels,
      `compact()` (which re-runs the layout), search filtered again: no
      deleted label, predicate fraction 1.0, no rescore byte on the card;
+  4f. corpus sharding at S = 4 (fig13's protocol,
+     `benchmarks/fig13_corpus_sharded.py:86`: merge_rounds 5, 8 cross
+     candidates): `sharded_build` of the n = 10^6 corpus (build seconds;
+     recall@10 through the sharded search at ef 64 above a floor); the
+     phase-4 graph `shard()`ed: the hashed ef-64 `sharded_search` of the
+     10,000 queries bitwise phase 4's search (ids, dists, n_expanded), the
+     filtered search at s = 0.1 bitwise 4d's, and 4b's index's
+     `corpus_search` bitwise its `search` in label space; `memory_report`'s
+     per-shard and replicated bytes and the peak card memory;
+  4g. `torch.distributed` at world size 1 on NCCL (a HashStore rendezvous,
+     no port): `distributed_search` and `corpus_sharded_search` bitwise the
+     same searches without a group, one `DynamicIndex(group=)` insert batch
+     giving the in-process index's pool, and `sharded_build_graph`
+     (allgather) at phase 3's n = 100,000 within 0.02 recall@10 of phase
+     3's fp32 build;
   5. where the time goes: torch.profiler over one propagation round, one
      hashed search (with the summed device time of `search_expand` and of
      `visited_insert`) and the same search with the dense mask, one insert
@@ -65,7 +87,7 @@ Phases, each printing its own lines with seconds:
      table and with the dense one, and the share of true 10-NN the built
      pools hold.
 
-Each path (4, 4b, 4c, 4d's filtered and layout paths, 4e) runs with the
+Each path (4, 3b, 4b, 4c, 4d's filtered and layout paths, 4e, 4f, 4g) runs with the
 launch counts set to 0 just before it and read just after; every kernel it
 runs must have launched. Then one JSON line {"kernels": [...]} and, last,
 {"ok": true, "device": ...}. Any failure raises and the exit code is
@@ -107,6 +129,8 @@ from repro_torch.core import (  # noqa: E402
     search,
     update_round,
 )
+from repro_torch.core import corpus_shard as CS  # noqa: E402
+from repro_torch.core import distributed as D  # noqa: E402
 from repro_torch.core.labels import pack_ids  # noqa: E402
 from repro_torch.core.pools import stage_request_matrix  # noqa: E402
 from repro_torch.core.search import _table_insert, default_visited_cap  # noqa: E402
@@ -186,6 +210,29 @@ TIERED_KERNELS = (
     "rowwise_sqdist",
     "visited_insert",
 )
+# the sorted-order ablation (3b): recall@10 floors at ef 64, written before
+# the first card run; they catch a broken graph and rank nothing (an
+# ascending build keeps few neighbors a vertex, ~8 of 48 at n = 20,000)
+SORTED_FLOOR = {"ascending": 0.20, "descending": 0.30}
+SORTED_KERNELS = (
+    "topr_merge", "rowwise_sqdist", "pairwise_sqdist", "search_expand", "visited_insert"
+)
+# corpus sharding (4f): fig13's full-scale protocol at SIFT1M's shape
+CORPUS_SHARDS, MERGE_ROUNDS, CROSS = 4, 5, 8
+# recall@10 floor of the sharded build through the sharded search at ef 64,
+# written before the first card run: under the replicated build's 0.638,
+# as its cross-partition edges come only from 5 merge rounds
+SHARDED_BUILD_FLOOR = 0.40
+CORPUS_KERNELS = (
+    "gather_sqdist", "rng_round", "topr_merge", "search_expand", "search_expand+filter",
+    "search_expand/int8+valid", "rowwise_sqdist", "pairwise_sqdist", "visited_insert",
+)
+# torch.distributed at world size 1 (4g), at phase 3's n
+NCCL_KERNELS = (
+    "rng_round", "topr_merge", "search_expand", "rowwise_sqdist", "pairwise_sqdist",
+    "visited_insert", "gather_sqdist/int8", "search_expand/int8+valid",
+)
+NCCL_RECALL_GAP = 0.02
 ROW_PATH = {**dict.fromkeys(MAIN_KERNELS, "main"), **dict.fromkeys(BF16_KERNELS, "bf16")}
 ROW_PATH.update(dict.fromkeys(DYN_KERNELS[:4], "dynamic"))
 ROW_PATH.update({"search_expand+filter": "filtered", "search_expand/int8+valid+filter": "tiered"})
@@ -194,6 +241,8 @@ ROW_PATH.update({"search_expand+filter": "filtered", "search_expand/int8+valid+f
 BEAM_MERGES = ((64, "main"), (128, "main"), (400, "filtered"), (512, "filtered"))  # (ef, path), W = ef + R
 ROW_PATH.update({f"topr_merge[W={ef + SIFT1M.build.r}]": path for ef, path in BEAM_MERGES})
 ROW_PATH["pairwise_sqdist[M=1]"] = "main"  # the medoid's shape; shares the counter
+# the corpus path's shapes of B6 (fp32 merge pairs) and B3 (one shard's step)
+ROW_PATH.update({"gather_sqdist[merge]": "corpus", "search_expand[shard]": "corpus"})
 # the hashed visited insert on the inserts of real searches at the main
 # path's ef 64 / 128 and the filtered path's ef 512 (tables of 512, 1024 and
 # 4096 slots): rows that share the `visited_insert` counter
@@ -663,6 +712,60 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         )
     del data8, sc8, of8, vwords, fwords
     torch.cuda.empty_cache()
+
+    # -- the corpus path's shapes (4f): B6 at fp32 on a merge round's pairs
+    # (every vertex in a run of 8 beside 8 candidates from the other shards,
+    # drawn as `corpus_shard._cross_candidates` draws them), and B3 as one
+    # shard of the sharded search runs it: its (n / S, D) slice, the
+    # neighbors it does not own masked to -1, the (Q, 1) table of -1
+    row0s, n_loc = CS.shard_bounds(n, CORPUS_SHARDS)
+    raw = torch.randint(0, 2**31 - 1, (n, CROSS), generator=g, device=dev, dtype=torch.int32)
+    cj = CS._cross_candidates(raw, n, n_loc).reshape(-1)
+    ci = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(CROSS)
+    m8 = ci.shape[0]
+    gathered_ms = ((m8 + n) * d * 4 + m8 * 12) / PEAK_BYTES_PER_S * 1e3
+    measure(
+        "gather_sqdist[merge]",
+        "src/repro_torch/kernels/csrc/gather_l2.cu",
+        "src/repro/kernels/gather_l2.py:52",
+        lambda: gather_sqdist(x, ci, cj),
+        lambda: ref.gather_sqdist_ref(x, ci, cj),
+        lambda got, want: (
+            close(got, want, "gather_sqdist[merge]"),
+            f"; gathered-rows bound {gathered_ms:.3f} ms",
+        ),
+        unique_rows(torch.cat([ci, cj])) * d * 4 + m8 * 12,
+        m8 * 3 * d,
+        None,
+        5,
+        launches_of="gather_sqdist",
+    )
+    del raw, cj, ci
+    k = 1
+    x_sh = x[row0s[k] : row0s[k] + n_loc]
+    owned, loc = CS._owner(nbrs, row0s[k], min(n_loc, n - row0s[k]), n_loc)
+    nloc = torch.where(owned, loc, -1).to(torch.int32)
+    dummy = torch.full((q, 1), -1, dtype=torch.int32, device=dev)
+    live_s = int((nloc >= 0).sum())
+
+    def shard_check(got, want):
+        err, _ = expand_check(got, want)
+        return err, f"; {1 - live_s / nloc.numel():.3f} of slots masked"
+
+    measure(
+        "search_expand[shard]",
+        "src/repro_torch/kernels/csrc/search_expand.cu",
+        "src/repro/kernels/search_expand.py:170",
+        lambda: search_expand(x_sh, queries, nloc, dummy),
+        lambda: ref.search_expand_ref(x_sh, queries, nloc, dummy),
+        shard_check,
+        unique_rows(nloc) * d * 4 + q * d * 4 + q * r * 13 + q * 4,
+        3 * live_s * d,
+        None,
+        20,
+        launches_of="search_expand",
+    )
+    del nloc, dummy
     log(f"[kernels] done in {time.perf_counter() - t0:.1f}s")
     return rows
 
@@ -688,6 +791,7 @@ def phase_parity(dev, cfg):
     x = synthetic.make_preset(g, "sift-like", N_PARITY)
     queries = synthetic.queries_from(g, x, Q_PARITY)
     truth = brute_force_knn(x, queries, 10, device=dev)
+    kept = {}
     for rung in ("fp32", "int8"):
         data = x if rung == "fp32" else encode(x, rung)
         rescore = None if rung == "fp32" else x
@@ -718,7 +822,9 @@ def phase_parity(dev, cfg):
         if gap > 0.01:
             raise AssertionError(f"{rung}: kernel and plain builds differ by {gap:.4f} recall@10")
         log(f"[parity] {rung}: |kernels - plain| = {gap:.4f} <= 0.01")
+        kept[rung] = recalls["auto"]
     log(f"[parity] done in {time.perf_counter() - t0:.1f}s")
+    return x, queries, truth, kept["fp32"]
 
 
 def path_counts(label: str, counts: dict, needed, rows) -> None:
@@ -850,7 +956,7 @@ def phase_main(x, queries, cfg, rows):
     log(f"[main] build n={n} d={x.shape[1]} {cfg}: {build_s:.2f}s, mean degree {degree:.2f}")
     truth, gt_s = timed(lambda: brute_force_knn(x, queries, k, device=dev))
     log(f"[main] ground truth for {queries.shape[0]} queries: {gt_s:.2f}s")
-    recalls = {}
+    recalls, results = {}, {}
     for ef in EF_MAIN:
         before = ops.launch_counts()
         res, s = timed(
@@ -870,6 +976,7 @@ def phase_main(x, queries, cfg, rows):
         if not ok:
             raise AssertionError(f"search at ef={ef} returned empty or out-of-range results")
         rec = recalls[ef] = recall_at_k(res.ids, truth)
+        results[ef] = res
         log(
             f"[main] search ef={ef} hashed: {s:.2f}s, {steps} steps, {inserts} visited inserts, "
             f"{queries.shape[0] / s:.0f} QPS, "
@@ -883,7 +990,7 @@ def phase_main(x, queries, cfg, rows):
     insert_rows(x, pool.ids, queries, rows)  # after the path's counts are read
     path_counts("main", counts, MAIN_KERNELS, rows)
     log(f"[main] done in {time.perf_counter() - t0:.1f}s")
-    return pool, truth, recalls
+    return pool, truth, recalls, build_s, results
 
 
 # ---------------------------------------------------------------------------
@@ -1037,6 +1144,7 @@ def phase_filtered(x, queries, pool, rows) -> None:
     g = torch.Generator(dev).manual_seed(SEED + 30)
     store = encode_labels(torch.randint(0, N_LABELS, (n,), generator=g, device=dev), N_LABELS)
     filters = {s: random_query_filters(g, nq, N_LABELS, s) for s in SELECTIVITIES}
+    kept = {}
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     for s in SELECTIVITIES:
@@ -1050,6 +1158,7 @@ def phase_filtered(x, queries, pool, rows) -> None:
             )
         )
         steps = ops.launch_counts().get("search_expand+filter", 0) - steps
+        kept[s] = res
         truth, gt_s = timed(lambda: filtered_brute_force(x, queries, fw, store.words, k))
         frac = predicate_fraction(res.ids, fw, store.words)
         rec = filtered_recall_at_k(res.ids, truth)
@@ -1113,6 +1222,7 @@ def phase_filtered(x, queries, pool, rows) -> None:
     )
     path_counts("layout", ops.launch_counts(), LAYOUT_KERNELS, [])
     log(f"[filtered] done in {time.perf_counter() - t0:.1f}s")
+    return store, filters[0.1], kept[0.1]
 
 
 def phase_tiered(x, queries, cfg, rows) -> None:
@@ -1197,6 +1307,170 @@ def phase_tiered(x, queries, cfg, rows) -> None:
     log(f"[tiered] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     path_counts("tiered", counts, TIERED_KERNELS, rows)
     log(f"[tiered] done in {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the sorted-order ablation; 4f: corpus sharding; 4g: NCCL
+# ---------------------------------------------------------------------------
+
+
+def phase_sorted(x, queries, cfg, truth, disordered_recall: float, disordered_s: float) -> None:
+    """3b: ascending and descending builds (paper Alg. 2, Fig. 7) at phase
+    4's shape and build config, searched as phase 4 searches."""
+    t0 = time.perf_counter()
+    dev = x.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    for order in ("ascending", "descending"):
+        ocfg = cfg._replace(order=order)
+        pool, build_s = timed(
+            lambda: build_graph(x, ocfg, draws=Draws(SEED + 2, dev), device=dev)
+        )
+        res, s = timed(
+            lambda: search(x, pool.ids, queries, k=10, ef=64, visited="hashed", device=dev)
+        )
+        rec = recall_at_k(res.ids, truth)
+        log(
+            f"[sorted] {order} build n={x.shape[0]}: {build_s:.2f}s (disordered "
+            f"{disordered_s:.2f}s), mean degree {float(pool.degree().float().mean()):.2f}; "
+            f"search ef=64 hashed {s:.2f}s, recall@10 {rec:.4f} (disordered "
+            f"{disordered_recall:.4f}, floor {SORTED_FLOOR[order]})"
+        )
+        if rec < SORTED_FLOOR[order]:
+            raise AssertionError(f"{order} build: recall@10 {rec:.4f} below its floor")
+        del pool, res
+    log(f"[sorted] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    path_counts("sorted", ops.launch_counts(), SORTED_KERNELS, [])
+    log(f"[sorted] done in {time.perf_counter() - t0:.1f}s")
+
+
+def phase_corpus(x, queries, cfg, pool, truth, res64, filtered, idx, rows) -> None:
+    """4f: corpus sharding at S = 4 on the SIFT1M-shaped corpus: the
+    divide-and-conquer build, and the sharded search of phase 4's graph,
+    of 4d's filtered search and of 4b's dynamic index, each bitwise its
+    replicated search."""
+    t0 = time.perf_counter()
+    dev = x.device
+    n, k, nq = x.shape[0], 10, queries.shape[0]
+    store, fw, res_f = filtered
+    want_dyn = idx.search(queries, k=k, ef=64, visited="hashed")  # the replicated reference
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    sp, build_s = timed(
+        lambda: CS.sharded_build(
+            x, cfg, CORPUS_SHARDS, merge_rounds=MERGE_ROUNDS, cross_candidates=CROSS,
+            draws=Draws(SEED + 50, dev), device=dev,
+        )
+    )
+    built = CS.shard(x, sp, CORPUS_SHARDS, device=dev)
+    res, s = timed(lambda: built.search(queries, k=k, ef=64, visited="hashed"))
+    rec = recall_at_k(res.ids, truth)
+    log(
+        f"[corpus] sharded_build S={CORPUS_SHARDS} n={n} (merge_rounds {MERGE_ROUNDS}, "
+        f"{CROSS} cross candidates): {build_s:.2f}s, mean degree "
+        f"{float(sp.degree().float().mean()):.2f}; sharded search ef=64 hashed {s:.2f}s, "
+        f"{nq / s:.0f} QPS, recall@10 {rec:.4f} (floor {SHARDED_BUILD_FLOOR})"
+    )
+    if rec < SHARDED_BUILD_FLOOR:
+        raise AssertionError(f"sharded build recall@10 {rec:.4f} below {SHARDED_BUILD_FLOOR}")
+    del sp, built, res
+
+    sidx, shard_s = timed(lambda: CS.shard(x, pool, CORPUS_SHARDS, labels=store, device=dev))
+    got, s = timed(lambda: sidx.search(queries, k=k, ef=64, visited="hashed"))
+    if not _same(got, res64):
+        raise AssertionError("the sharded search differs from phase 4's search")
+    log(
+        f"[corpus] shard() of the phase-4 graph: {shard_s:.2f}s; sharded search ef=64 hashed "
+        f"{s:.2f}s, {nq / s:.0f} QPS, recall@10 {recall_at_k(got.ids, truth):.4f}: ids, dists "
+        "and n_expanded bitwise phase 4's"
+    )
+    ef_f = overfetch_ef(n, k, 0.1, 64)
+    got, s = timed(lambda: sidx.search(queries, k=k, ef=ef_f, visited="hashed", filter=fw))
+    if not _same(got, res_f):
+        raise AssertionError("the sharded filtered search differs from 4d's")
+    log(
+        f"[corpus] sharded filtered search s=0.1 ef={ef_f} hashed: {s:.2f}s, {nq / s:.0f} QPS, "
+        "bitwise 4d's"
+    )
+    got, s = timed(lambda: idx.corpus_search(queries, CORPUS_SHARDS, k=k, ef=64, visited="hashed"))
+    if not _same(got, want_dyn):
+        raise AssertionError("DynamicIndex.corpus_search differs from its search")
+    log(
+        f"[corpus] 4b's index corpus_search S={CORPUS_SHARDS} ef=64 hashed + fp32 rescore: "
+        f"{s:.2f}s (re-sharding included), {nq / s:.0f} QPS, bitwise its search in label space"
+    )
+    mem = CS.memory_report(sidx)
+    log(
+        f"[corpus] memory_report (fp32 rows, graph, label words): per shard "
+        f"{mem['per_shard_bytes']} B, replicated {mem['replicated_bytes']} B, n_loc "
+        f"{mem['n_loc']}; peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+    )
+    path_counts("corpus", ops.launch_counts(), CORPUS_KERNELS, rows)
+    log(f"[corpus] done in {time.perf_counter() - t0:.1f}s")
+
+
+def phase_nccl(cfg, parity) -> None:
+    """4g: the torch.distributed paths at world size 1 on NCCL, on phase 3's
+    data: each bitwise its single-process counterpart."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    x, queries, truth, parity_recall = parity
+    dev = x.device
+    n, k = x.shape[0], 10
+    base = n - DYN_BATCH
+    # the single-process references, outside the counted window
+    pool = build_graph(x, cfg, draws=Draws(SEED + 11, dev), device=dev)
+    want = search(x, pool.ids, queries, k=k, ef=64, visited="hashed", device=dev)
+    pb = build_graph(x[:base], cfg, draws=Draws(SEED + 60, dev), device=dev)
+    plain = DynamicIndex(x[:base], pb, DYN_CFG, draws=Draws(SEED + 61, dev), device=dev)
+    plain.insert(x[base:])
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=dev)
+    try:
+        ops.reset_launch_counts()
+        got = D.distributed_search(x, pool.ids, queries, k=k, ef=64, visited="hashed", device=dev)
+        if not _same(got, want):
+            raise AssertionError("distributed_search differs from search")
+        idx1 = CS.shard(x, pool, 1, device=dev)
+        got = idx1.search(queries, k=k, ef=64, visited="hashed", group=dist.group.WORLD)
+        if not _same(got, want):
+            raise AssertionError("corpus_sharded_search differs from search")
+        log(
+            f"[nccl] world size {dist.get_world_size()} on {dist.get_backend()}: "
+            "distributed_search and corpus_sharded_search bitwise search"
+        )
+        routed = DynamicIndex(
+            x[:base], pb, DYN_CFG, draws=Draws(SEED + 61, dev), device=dev,
+            group=dist.group.WORLD,
+        )
+        routed.insert(x[base:])
+        if not _same(routed.pool, plain.pool):
+            raise AssertionError("DynamicIndex(group=) insert differs from the in-process index")
+        log(f"[nccl] DynamicIndex(group=) insert of {DYN_BATCH}: the in-process pool, bitwise")
+        built, build_s = timed(
+            lambda: D.sharded_build_graph(x, cfg, draws=Draws(SEED + 62, dev), device=dev)
+        )
+        stats = {}
+        a2a, a2a_s = timed(
+            lambda: D.sharded_build_graph(
+                x, cfg, comm="a2a", draws=Draws(SEED + 62, dev), device=dev, stats=stats
+            )
+        )
+        if stats["a2a_dropped"] or not _same(a2a, built):
+            raise AssertionError("the a2a build differs from the allgather build")
+        res = search(x, built.ids, queries, k=k, ef=64, visited="hashed", device=dev)
+        rec = recall_at_k(res.ids, truth)
+        log(
+            f"[nccl] sharded_build_graph n={n}: allgather {build_s:.2f}s, a2a {a2a_s:.2f}s "
+            f"(bitwise equal, 0 dropped); recall@10 {rec:.4f} (phase 3's fp32 build "
+            f"{parity_recall:.4f}, gap <= {NCCL_RECALL_GAP})"
+        )
+        if abs(rec - parity_recall) > NCCL_RECALL_GAP:
+            raise AssertionError(f"sharded build recall@10 {rec:.4f} vs {parity_recall:.4f}")
+        path_counts("nccl", ops.launch_counts(), NCCL_KERNELS, [])
+    finally:
+        dist.destroy_process_group()
+    log(f"[nccl] done in {time.perf_counter() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -1310,16 +1584,22 @@ def main() -> None:
     queries = synthetic.queries_from(g, x, SIFT1M.n_queries)
     rows = phase_kernels(x, queries, Draws(SEED + 1, dev), cfg)
     torch.cuda.empty_cache()
-    phase_parity(dev, cfg)
+    parity = phase_parity(dev, cfg)
     torch.cuda.empty_cache()
-    pool, truth, recalls = phase_main(x, queries, cfg, rows)
+    pool, truth, recalls, build_s, results = phase_main(x, queries, cfg, rows)
+    phase_sorted(x, queries, cfg, truth, recalls[64], build_s)
+    torch.cuda.empty_cache()
     idx = phase_dynamic(x, queries, cfg, recalls[64], rows)
     torch.cuda.empty_cache()
     phase_bf16(x, queries, cfg, rows)
     torch.cuda.empty_cache()
-    phase_filtered(x, queries, pool, rows)
+    filtered = phase_filtered(x, queries, pool, rows)
     torch.cuda.empty_cache()
     phase_tiered(x, queries, cfg, rows)
+    torch.cuda.empty_cache()
+    phase_corpus(x, queries, cfg, pool, truth, results[64], filtered, idx, rows)
+    torch.cuda.empty_cache()
+    phase_nccl(cfg, parity)
     torch.cuda.empty_cache()
     phase_profile(x, queries, pool, truth, cfg, idx)
     log(f"[total] {time.perf_counter() - t0:.1f}s")

@@ -12,11 +12,12 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.core.corpus_shard import CorpusShardedIndex
 from repro_torch.core.dynamic import DynamicConfig, DynamicIndex
 from repro_torch.core.labels import LabelStore
 from repro_torch.core.layout import OptimizedIndex
 from repro_torch.core.pools import Pool
-from repro_torch.core.vecstore import VectorStore
+from repro_torch.core.vecstore import HostTier, VectorStore
 
 
 def from_jax(pool_ids, pool_dists, x, device="cuda"):
@@ -147,4 +148,38 @@ def dynamic_from_jax(
         cfg=cfg,
         draws=draws,
         device=dev,
+    )
+
+
+def corpus_sharded_from_jax(index, device="cuda") -> CorpusShardedIndex:
+    """The reference's `CorpusShardedIndex` as the port's, on `device`: its
+    fields are read as numpy arrays (bf16 stored rows bit for bit). A
+    host-placed rescore tier (not an array but an object holding its rows
+    as `data`, the reference's `HostTier`) becomes the port's `HostTier`
+    over the same rows."""
+    dev = _device.resolve(device)
+
+    def opt(a, dtype):
+        return None if a is None else _device.put(np.asarray(a), dtype, dev)
+
+    resc = index.rescores
+    if resc is not None and not hasattr(resc, "__array__"):
+        rescores = HostTier(np.asarray(resc.data, np.float32))
+    else:
+        rescores = opt(resc, torch.float32)
+    return CorpusShardedIndex(
+        data=_stored(index.data, dev),
+        scale=opt(index.scale, torch.float32),
+        offset=opt(index.offset, torch.float32),
+        graphs=_device.put(np.asarray(index.graphs), torch.int32, dev),
+        row0s=_device.put(np.asarray(index.row0s), torch.int32, dev),
+        valids=opt(index.valids, torch.bool),
+        rescores=rescores,
+        vwords=opt(index.vwords, torch.int32),
+        ids_maps=opt(index.ids_maps, torch.int32),
+        entry=_device.put(np.asarray(index.entry), torch.int32, dev),
+        entry_row=_device.put(np.asarray(index.entry_row), torch.float32, dev),
+        entry_valid=opt(index.entry_valid, torch.bool),
+        entry_words=opt(index.entry_words, torch.int32),
+        n=int(index.n),
     )

@@ -1,5 +1,20 @@
 """GRNND core: graph build, beam search and recall, in PyTorch."""
 
+from repro_torch.core.corpus_shard import (
+    CorpusShardedIndex,
+    memory_report,
+    shard,
+    shard_optimized,
+    sharded_build,
+    sharded_search,
+)
+from repro_torch.core.distributed import (
+    corpus_sharded_search,
+    distributed_search,
+    make_sharded_builder,
+    sharded_apply_requests,
+    sharded_build_graph,
+)
 from repro_torch.core.draws import Draws, RecordedDraws
 from repro_torch.core.dynamic import DynamicConfig, DynamicIndex
 from repro_torch.core.grnnd import (
@@ -45,6 +60,17 @@ from repro_torch.core.vecstore import (
 )
 
 __all__ = [
+    "CorpusShardedIndex",
+    "memory_report",
+    "shard",
+    "shard_optimized",
+    "sharded_build",
+    "sharded_search",
+    "corpus_sharded_search",
+    "distributed_search",
+    "make_sharded_builder",
+    "sharded_apply_requests",
+    "sharded_build_graph",
     "Draws",
     "RecordedDraws",
     "DynamicConfig",

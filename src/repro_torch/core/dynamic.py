@@ -38,11 +38,15 @@ memory behind a `vecstore.HostTier`; it needs a quantized traversal tier.
 `DynamicConfig(layout="bfs" | "hub")` renumbers slots for locality at
 construction and after every `compact()`.
 
+With `group=` (a `torch.distributed` process group, the same index on
+every rank) the symmetric-edge half of an insert is routed to the owning
+ranks (`distributed.sharded_apply_requests`), bitwise the in-process
+staging. `corpus_search` serves the index corpus-sharded
+(`core/corpus_shard.py`), bitwise `search` in label space.
+
 All other state lives on the index's device (`device=`, default "cuda"),
 labels and compaction included; the integers are the JAX package's. Every
-random number comes from `draws.localized_pairs`. Not ported: `mesh` and
-`corpus_search` (ROADMAP queue A.10 / A.11), which raise
-`NotImplementedError`.
+random number comes from `draws.localized_pairs`.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.core import corpus_shard as CS
+from repro_torch.core import distributed as D
 from repro_torch.core import labels as L
 from repro_torch.core import layout as LY
 from repro_torch.core import pools as P
@@ -91,12 +97,15 @@ def _pow2_capacity(need: int, floor: int) -> int:
     return cap
 
 
-def _apply_seed_requests(pool: P.Pool, new_slots, seed_ids, seed_d, r: int, cap: int) -> P.Pool:
+def _apply_seed_requests(
+    pool: P.Pool, new_slots, seed_ids, seed_d, r: int, cap: int, group=None
+) -> P.Pool:
     """Write the inserted vertices' seed pools and their symmetric edges.
 
     The new rows' pools are the deduplicated top-r of the seed results
     (written into `pool` in place); the reverse direction (new vertex into
-    each seed neighbor's pool) goes through the build's request staging.
+    each seed neighbor's pool) goes through the build's request staging,
+    routed to the owning ranks under a `group`.
     """
     sk = seed_ids.shape[1]
     seed_ids, seed_d = seed_ids.contiguous(), seed_d.contiguous()
@@ -108,7 +117,9 @@ def _apply_seed_requests(pool: P.Pool, new_slots, seed_ids, seed_d, r: int, cap:
         src=new_slots.repeat_interleave(sk),
         dist=seed_d.reshape(-1),
     )
-    return P.insert_requests(pool, req, cap=cap)
+    if group is None:
+        return P.insert_requests(pool, req, cap=cap)
+    return D.sharded_apply_requests(pool, req, cap, group=group)
 
 
 def _localized_round(x, pool: P.Pool, frontier, si, sj, cap: int) -> P.Pool:
@@ -146,10 +157,6 @@ def _masked_knn_dists(x, valid, queries) -> torch.Tensor:
 HOST_ROW_BLOCK = 1 << 18
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue {item})")
-
-
 class DynamicIndex:
     """A mutable ANN index over padded device buffers.
 
@@ -167,8 +174,11 @@ class DynamicIndex:
                            `n_labels` (so the word count W) is frozen
 
     `size` is the allocated prefix (live + tombstoned), `n_live` the live
-    count, `rounds_run` the localized rounds run so far (and the round
-    number `draws.localized_pairs` is asked for). The int8 scale/offset
+    count, `group` the process group inserts are routed over (None: in
+    process; `torch.distributed.group.WORLD` for the default group; the
+    capacity must split evenly over its ranks), `rounds_run` the localized
+    rounds run so far (and the round number `draws.localized_pairs` is
+    asked for). The int8 scale/offset
     are frozen at construction; inserts quantize with them.
     """
 
@@ -182,11 +192,10 @@ class DynamicIndex:
         device="cuda",
         vertex_labels=None,
         n_labels=None,
-        mesh=None,
+        group=None,
     ):
-        if mesh is not None:
-            raise _not_ported("DynamicIndex(mesh=...)", "A.10")
         _check_cfg(cfg)
+        self.group = group
         dev = _device.resolve(device)
         x = _device.put(x, torch.float32, dev)
         ids = _device.put(pool.ids, torch.int32, dev)
@@ -280,6 +289,7 @@ class DynamicIndex:
         dev = _device.resolve(device)
         self = cls.__new__(cls)
         self.cfg = cfg
+        self.group = None
         self._dev = dev
         self._host_tier = None
         x = _device.put(x, torch.float32, dev)
@@ -426,9 +436,6 @@ class DynamicIndex:
             if 0 <= e < size:
                 self._entry = torch.tensor(int(perm[e]), dtype=torch.int32, device=dev)
 
-    def corpus_search(self, *args, **kwargs):
-        raise _not_ported("DynamicIndex.corpus_search", "A.11")
-
     # -- mutation ---------------------------------------------------------
 
     def insert(self, xs, vertex_labels=None) -> torch.Tensor:
@@ -499,7 +506,9 @@ class DynamicIndex:
         self.labels[self.size : self.size + b] = out
         self._next_label += b
 
-        self.pool = _apply_seed_requests(self.pool, new_slots, seed_ids, seed_d, self.r, cap)
+        self.pool = _apply_seed_requests(
+            self.pool, new_slots, seed_ids, seed_d, self.r, cap, self.group
+        )
 
         # localized refinement over the inserted vertices plus every vertex
         # that received a symmetric edge
@@ -670,6 +679,55 @@ class DynamicIndex:
             filter=None if filter is None else self._query_words(filter),
             overfetch=overfetch,
             device=self.device,
+        )
+        return SearchResult(self._to_labels(res.ids), res.dists, res.n_expanded)
+
+    def corpus_search(
+        self,
+        queries,
+        n_shards: int,
+        *,
+        k: int = 10,
+        ef: int = 64,
+        max_steps: int = 512,
+        visited: str = "dense",
+        visited_cap: int | None = None,
+        rescore: bool | None = None,
+        filter=None,
+        overfetch: int = 4,
+        group=None,
+    ) -> SearchResult:
+        """Corpus-sharded search over this index (`core/corpus_shard.py`):
+        each of `n_shards` shards owns 1/S of the padded buffers (vectors,
+        graph rows, validity, label words, the rescore tier, on the host
+        under `tier="host"`). Bitwise `search()` in label space for any
+        shard count, across insert, delete and compact. The buffers are
+        re-sharded on every call. `group` runs the shards on a process
+        group's ranks (`corpus_shard.sharded_search`); None in process."""
+        if rescore is None:
+            rescore = self.store is not None
+        idx = CS.shard(
+            self._tier(),
+            self.pool.ids,
+            n_shards,
+            valid=self.valid,
+            rescore=self._rescore_tier() if rescore else None,
+            labels=None if filter is None else self.label_words(),
+            entry=self.entry(),
+            tier=self.cfg.tier,
+            device=self.device,
+        )
+        res = CS.sharded_search(
+            idx,
+            queries,
+            k=k,
+            ef=ef,
+            max_steps=max_steps,
+            visited=visited,
+            visited_cap=visited_cap,
+            filter=None if filter is None else self._query_words(filter),
+            overfetch=overfetch,
+            group=group,
         )
         return SearchResult(self._to_labels(res.ids), res.dists, res.n_expanded)
 

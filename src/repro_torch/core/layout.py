@@ -34,6 +34,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import labels as L
+from repro_torch.core.distributed import distributed_search as run_distributed_search
 from repro_torch.core import vecstore as VS
 from repro_torch.core.search import SearchResult, medoid
 from repro_torch.core.search import search as run_search
@@ -220,9 +221,18 @@ class OptimizedIndex(NamedTuple):
             kw.setdefault("labels", self.vwords)
         return run_search(self.x, self.graph_ids, queries, ids_map=self.inv, **kw)
 
-    def distributed_search(self, *args, **kwargs) -> SearchResult:
-        raise NotImplementedError(
-            "OptimizedIndex.distributed_search is not ported yet (ROADMAP queue A.10)"
+    def distributed_search(self, queries, group=None, **kw) -> SearchResult:
+        """`distributed.distributed_search` over the optimized layout, the
+        queries split over `group`'s ranks (None: the default group);
+        ids come back in the original numbering."""
+        kw.setdefault("entry", self.entry)
+        kw.setdefault("valid", self.valid)
+        kw.setdefault("rescore", self.rescore)
+        kw.setdefault("device", self.graph_ids.device)
+        if self.vwords is not None:
+            kw.setdefault("labels", self.vwords)
+        return run_distributed_search(
+            self.x, self.graph_ids, queries, group=group, ids_map=self.inv, **kw
         )
 
 

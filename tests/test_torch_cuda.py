@@ -20,7 +20,11 @@ storage rung with rows copied by bulk copies (D = 128), plainly (D = 33) and
 into a row buffer that leaves one to four blocks an SM (D = 960); gather_sqdist
 on the re-base's runs of equal owners at 1 to 8 quads a lane and past them
 (D = 16 ... 1040), with runs that straddle the groups' ranges and batches,
-N = 1, and the same pairs shuffled (bitwise the sorted result); and the
+N = 1, and the same pairs shuffled (bitwise the sorted result), and at
+fp32 on the sharded build's merge pairs (runs of 8 owners beside
+candidates from the other shards); search_expand as one shard of the
+corpus-sharded search runs it (3/4 of the slots masked, a 1-slot table),
+and that search bitwise the replicated one on the card; and the
 visited insert at H = 1, 3, 8, 512, 4096 and R = 1, 20, 48, bitwise the column
 loop. Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
 summation order; the dequant itself is bitwise the plain version's);
@@ -49,6 +53,7 @@ from repro_torch.core import (
     recall_at_k,
     search,
 )
+from repro_torch.core import corpus_shard as CS
 from repro_torch.core.labels import pack_ids
 from repro_torch.core.search import _table_insert
 from repro_torch.data import synthetic
@@ -314,6 +319,62 @@ def test_gather_sqdist_kernel_owner_runs(dev, precision, n, d, r):
     perm = torch.randperm(n * r, generator=g, device=dev)
     shuffled = gather_sqdist(data, ni[perm].contiguous(), nj[perm].contiguous(), scale, offset)
     assert torch.equal(shuffled, got[perm])
+
+
+# the sharded build's merge-refine pairs at fp32: owner v in runs of 8
+# beside 8 candidates from the other shards, drawn as
+# `corpus_shard._cross_candidates` draws them, at S = 4, 3 and 2
+@pytest.mark.parametrize("n,d,s", [(40_000, 128, 4), (1001, 33, 3), (5003, 960, 2)])
+def test_gather_sqdist_kernel_cross_shard_runs(dev, n, d, s):
+    g = torch.Generator(dev).manual_seed(n + d + s)
+    x = synthetic.vector_dataset(g, n, d)
+    n_loc = CS.shard_bounds(n, s)[1]
+    raw = torch.randint(0, 2**31 - 1, (n, 8), generator=g, device=dev, dtype=torch.int32)
+    nj = CS._cross_candidates(raw, n, n_loc).reshape(-1)
+    ni = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(8)
+    assert bool((nj // n_loc != ni // n_loc).all())  # every candidate on another shard
+    got = _launched("gather_sqdist", lambda: gather_sqdist(x, ni, nj))
+    torch.testing.assert_close(got, ref.gather_sqdist_ref(x, ni, nj), rtol=RTOL, atol=ATOL)
+
+
+# one shard's step of the corpus-sharded search: the neighbors the shard
+# does not own masked to -1 (about (S-1)/S of the slots), local rows into
+# its (n_loc, D) slice, and the (Q, 1) table of -1 the corpus body probes
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n,d,q,r,s", [(40_003, 128, 1000, 48, 4), (3001, 33, 100, 13, 4),
+                                       (2000, 960, 50, 48, 2)])
+def test_search_expand_kernel_shard_local(dev, masked, n, d, q, r, s):
+    g = torch.Generator(dev).manual_seed(n + q + s)
+    x = torch.randn((n, d), generator=g, device=dev)
+    queries = torch.randn((q, d), generator=g, device=dev)
+    row0s, n_loc = CS.shard_bounds(n, s)
+    k = s - 1  # the last shard: its slice has a padded tail where n % s != 0
+    x_s = CS._stack_shards(x, row0s, n_loc, 0)[k]
+    nbrs = torch.randint(-1, n, (q, r), generator=g, device=dev, dtype=torch.int32)
+    owned, loc = CS._owner(nbrs, row0s[k], min(n_loc, n - row0s[k]), n_loc)
+    nloc = torch.where(owned, loc, -1).to(torch.int32)
+    assert abs(float((nloc < 0).float().mean()) - (1 - 1 / s)) < 0.1
+    valid = (torch.rand((n_loc,), generator=g, device=dev) > 0.3) if masked else None
+    dummy = torch.full((q, 1), -1, dtype=torch.int32, device=dev)
+    name = "search_expand" + ("+valid" if masked else "")
+    gi, gd, gf = _launched(name, lambda: search_expand(x_s, queries, nloc, dummy, valid))
+    wi, wd, wf = ref.search_expand_ref(x_s, queries, nloc, dummy, valid)
+    assert torch.equal(gi, wi) and torch.equal(gf, wf)
+    torch.testing.assert_close(gd, wd, rtol=RTOL, atol=ATOL)
+
+
+def test_corpus_sharded_search_on_the_card_is_search(dev):
+    """The sharded search with the kernels is bitwise the replicated one."""
+    g = torch.Generator(dev).manual_seed(11)
+    x = synthetic.make_preset(g, "sift-like", 20_000)
+    queries = synthetic.queries_from(g, x, 300)
+    pool = build_graph(x, GRNNDConfig(s=12, r=24, t1=2, t2=3, pairs_per_vertex=24),
+                       draws=Draws(1, dev), device=dev)
+    for visited in ("dense", "hashed"):
+        want = search(x, pool.ids, queries, k=10, ef=48, visited=visited, device=dev)
+        for s in (2, 3, 4):
+            got = CS.shard(x, pool, s, device=dev).search(queries, k=10, ef=48, visited=visited)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (visited, s)
 
 
 def insert_cases(rng, q: int, h: int, r: int) -> np.ndarray:

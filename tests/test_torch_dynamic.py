@@ -482,10 +482,8 @@ def test_localized_pairs_seam():
 def test_what_is_not_ported_raises(corpus, base_pool):
     x = corpus[0][:N_BASE]
     pool = Pool(torch.tensor(np.asarray(base_pool.ids)), torch.tensor(np.asarray(base_pool.dists)))
-    # mesh= and corpus_search are the parts still to port
-    with pytest.raises(NotImplementedError, match="A.10"):
-        DynamicIndex(x, pool, device="cpu", mesh=object())
-    # tier="host", layout= and vertex_labels= are ported; misuse raises
+    # every part is ported now (group= and corpus_search in the last
+    # slice); misuse of tier="host", layout= and vertex_labels= raises
     for kw, msg in (
         (dict(cfg=DynamicConfig(tier="host")), "quantized traversal tier"),
         (dict(cfg=DynamicConfig(tier="disk", precision="int8")), "tier"),
@@ -496,9 +494,10 @@ def test_what_is_not_ported_raises(corpus, base_pool):
         with pytest.raises(ValueError, match=msg):
             DynamicIndex(x, pool, device="cpu", **kw)
     idx = DynamicIndex(x, pool, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        idx.corpus_search(x[:2], 2)
+    got, want = idx.corpus_search(x[:2], 2), idx.search(x[:2])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     for call in (
+        lambda: idx.corpus_search(x[:2], 2, filter=np.zeros(2, np.int32)),
         lambda: idx.search(x[:2], filter=np.zeros(2, np.int32)),
         lambda: idx.exact_knn(x[:2], 3, filter=np.zeros(2, np.int32)),
         lambda: idx.insert(x[:2], vertex_labels=np.zeros(2, np.int32)),

@@ -11,6 +11,8 @@ reference's optimized index from the same entry: the permutation and the
 packed graph are equal, and searches agree as in tests/test_torch_search.py
 (at least 97% of queries identical, distances to rtol 1e-5). The dynamic
 index's layout pass equals the reference's slot by slot.
+`OptimizedIndex.distributed_search` over a one-rank gloo group returns the
+plain search bitwise.
 """
 
 import jax
@@ -18,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.core import grnnd as jgrnnd
 from repro.core import labels as JL
@@ -134,8 +137,12 @@ def test_optimized_filtered_search_equals_the_plain_search_bitwise(case):
     _same(base, custom.search(tq, k=K, ef=EF, filter=fw))
     with pytest.raises(ValueError):
         LY.optimize(vs, tpool, permutation=np.zeros(N, np.int64), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        opt.distributed_search(None, ("data",), tq)
+    # the query-sharded search over a one-rank gloo group: the same result
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        _same(base, opt.distributed_search(tq, k=K, ef=EF, filter=fw))
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("order", ["bfs", "hub"])

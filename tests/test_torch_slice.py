@@ -6,10 +6,14 @@
     of the JAX path (the graphs drift apart from the first fp32 near-tie on,
     so they are compared by the recall they reach);
   * the package imports neither JAX nor the JAX package;
-  * entry points default to the card and raise without one;
-  * the launch CLI runs end to end on the CPU when asked to.
+  * entry points default to the card and raise without one (the build in
+    every order, the corpus-sharded index, build and search, and the
+    distributed search and build, before any process group is asked for);
+  * the launch CLI and `examples/quickstart_torch.py` run end to end on the
+    CPU when asked to.
 """
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -26,7 +30,18 @@ from repro.core import recall as jrecall
 from repro.core.search import search as jsearch
 from repro.data import synthetic as jsynthetic
 from repro_torch import convert
-from repro_torch.core import GRNNDConfig, brute_force_knn, build_graph, recall_at_k, search
+from repro_torch.core import (
+    GRNNDConfig,
+    brute_force_knn,
+    build_graph,
+    distributed_search,
+    recall_at_k,
+    search,
+    shard,
+    sharded_build,
+    sharded_build_graph,
+    sharded_search,
+)
 from repro_torch.launch import build_index
 from test_torch_grnnd import jax_draws
 
@@ -67,7 +82,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.'))]\n"
         "bad += [m for m in sys.modules if m == 'repro']\n"
-        "print(len([m for m in sys.modules if m.startswith('repro_torch')]), bad)\n"
+        "mods = sorted(m for m in sys.modules if m.startswith('repro_torch'))\n"
+        "print(len(mods), bad, ' '.join(mods))\n"
         "sys.exit(1 if bad else 0)\n"
     )
     out = subprocess.run(
@@ -78,7 +94,9 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 15  # every module was imported
+    assert int(out.stdout.split()[0]) >= 31  # every module was imported
+    for mod in ("repro_torch.core.corpus_shard", "repro_torch.core.distributed"):
+        assert mod in out.stdout.split()
 
 
 def test_entry_points_default_to_the_card():
@@ -86,8 +104,15 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: the default device is usable")
     x = np.zeros((20, 4), np.float32)
     ids = np.zeros((20, 2), np.int32)
+    cfg = GRNNDConfig(s=2, r=2, t1=1, t2=1, pairs_per_vertex=2)
     calls = [
-        lambda: build_graph(x, GRNNDConfig(s=2, r=2, t1=1, t2=1, pairs_per_vertex=2)),
+        lambda: build_graph(x, cfg),
+        lambda: build_graph(x, cfg._replace(order="ascending")),
+        lambda: shard(x, ids, 2),
+        lambda: sharded_build(x, cfg, 2),
+        lambda: sharded_search(shard(x, ids, 2), x[:2]),
+        lambda: distributed_search(x, ids, x[:2]),
+        lambda: sharded_build_graph(x, cfg),
         lambda: search(x, ids, x[:2]),
         lambda: brute_force_knn(x, x[:2], 3),
         lambda: convert.from_jax(ids, x[:, :2], x),
@@ -104,3 +129,13 @@ def test_build_index_cli_on_the_cpu(tmp_path):
     assert stats["recall_at_10"] >= 0.8 and stats["device"] == "cpu"
     saved = np.load(out)
     assert saved["ids"].shape == (1500, 16) and saved["x"].shape == (1500, 128)
+
+
+def test_quickstart_torch_on_the_cpu():
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", SRC.parent / "examples" / "quickstart_torch.py"
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    stats = mod.main(["--device", "cpu", "--n", "2000"])
+    assert stats["recall_at_10"] >= 0.8 and stats["degree"] > 0
