@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GRNND build, beam search, dynamic index, filtered
-search, host rescore tier and layout pass on one NVIDIA card.
+search, host rescore tier, layout pass, sharded searches and serving layer
+on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, on a machine with a card
 
@@ -19,7 +20,9 @@ Phases, each printing its own lines with seconds:
      beam merges' shapes (W = 112, 176, 448, 560), `pairwise_sqdist` also at
      the medoid's M = 1, with cuBLAS SGEMM (TF32 off) timed beside the
      ground-truth row as the fp32 GEMM yardstick, and `gather_sqdist` beside a
-     second bound on its log line, its neighbor rows as gathered; after
+     second bound on its log line, its neighbor rows as gathered (its library
+     time is the gathered expression `(x[ni] - x[nj]).square().sum(-1)`, in
+     chunks of 2^22 pairs); after
      phase 4's counts are read, `visited_insert` on every insert of one
      hashed search of the phase-4 graph at ef 64, 128 and 512 (tables of
      512, 1024 and 4096 slots), replayed and held exactly against its column
@@ -79,6 +82,24 @@ Phases, each printing its own lines with seconds:
      giving the in-process index's pool, and `sharded_build_graph`
      (allgather) at phase 3's n = 100,000 within 0.02 recall@10 of phase
      3's fp32 build;
+  4h. serving, after phase 5 (whose insert it follows): the continuous-batching
+     engine (`serve/ann_engine.py`) at fig14's full-scale menu (k 5 / 10,
+     ef 32 / 64, batches of up to 32, `benchmarks/fig14_serving.py:79`),
+     each worker as `serve --engine` drives it (a closed-loop replay for the
+     capacity, then an open-loop replay at 0.7 x capacity): the static
+     worker over phase 4's graph and 10,000 queries, every other request
+     filtered at s = 0.1 against 4d's labels, each result bitwise its row of
+     one direct search per (ef, filtered) group and the first 64 of Q = 1
+     searches, predicate fraction exactly 1.0; the dynamic worker on 4b's
+     int8 index, 2,048 requests with a churn pair of 16 every 32, the log
+     replayed on a twin index from the same state (every result, the pool,
+     labels and validity bitwise); the sharded worker at S = 4 on the static
+     trace's first 2,048 requests unfiltered, bitwise the replicated search;
+     then the serving CLI (`launch/serve.py`) in process on a sift-small
+     index that `launch/build_index.py` builds into `build/serve_cli/`, one
+     run a mode (static, filtered, int8 + host tier, layout, corpus shards,
+     int8 mutable churn, the engine, `--shards 1` on NCCL): every stats line
+     parses and `pred_ok` is 1.0;
   5. where the time goes: torch.profiler over one propagation round, one
      hashed search (with the summed device time of `search_expand` and of
      `visited_insert`) and the same search with the dense mask, one insert
@@ -87,7 +108,8 @@ Phases, each printing its own lines with seconds:
      table and with the dense one, and the share of true 10-NN the built
      pools hold.
 
-Each path (4, 3b, 4b, 4c, 4d's filtered and layout paths, 4e, 4f, 4g) runs with the
+Each path (4, 3b, 4b, 4c, 4d's filtered and layout paths, 4e, 4f, 4g, and 4h's
+three workers and its CLI runs) runs with the
 launch counts set to 0 just before it and read just after; every kernel it
 runs must have launched. Then one JSON line {"kernels": [...]} and, last,
 {"ok": true, "device": ...}. Any failure raises and the exit code is
@@ -96,8 +118,11 @@ non-zero; without a card the script exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import importlib
+import io
 import json
 import math
 import subprocess
@@ -105,6 +130,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -112,6 +138,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs.grnnd_paper import SIFT1M  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     Draws,
+    Pool,
     DynamicConfig,
     DynamicIndex,
     brute_force_knn,
@@ -142,6 +169,9 @@ from repro_torch.kernels.rng_round import rng_round  # noqa: E402
 from repro_torch.kernels.search_expand import search_expand  # noqa: E402
 from repro_torch.kernels.topr_merge import topr_merge  # noqa: E402
 from repro_torch.kernels.visited_insert import visited_insert  # noqa: E402
+from repro_torch.launch import build_index as build_cli  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.serve import ann_engine as AE  # noqa: E402
 
 # the module (the package exports its `search` function under the same name)
 search_mod = importlib.import_module("repro_torch.core.search")
@@ -233,6 +263,49 @@ NCCL_KERNELS = (
     "visited_insert", "gather_sqdist/int8", "search_expand/int8+valid",
 )
 NCCL_RECALL_GAP = 0.02
+# serving (4h): fig14's full-scale menu (`benchmarks/fig14_serving.py:79-89`)
+# over phase 4's queries, the open-loop replay at 0.7 x the closed-loop
+# capacity (`launch/serve.py:428`); the admission bound holds a whole
+# closed-loop trace, so the capacity probe sheds nothing
+SERVE_CFG = dict(max_batch=32, ef_menu=(32, 64), max_pending=16_384)
+SERVE_K, SERVE_EF, SERVE_LOAD = (5, 10), (32, 64), 0.7
+SERVE_DYN_Q, SERVE_CHURN, SERVE_CHURN_EVERY = 2048, 16, 32  # `launch/serve.py:362-385`
+SERVE_SHARD_Q, SERVE_Q1 = 2048, 64
+SERVE_RECALL_FLOOR = 0.45  # recall@k of the unfiltered requests, static and sharded
+SERVE_KERNELS = {
+    "static": (
+        "topr_merge", "search_expand", "search_expand+filter", "rowwise_sqdist",
+        "pairwise_sqdist", "visited_insert",
+    ),
+    "dynamic": (
+        "rng_round/int8", "search_expand/int8+valid", "topr_merge", "rowwise_sqdist",
+        "visited_insert",
+    ),
+    "sharded": ("search_expand", "topr_merge", "rowwise_sqdist", "visited_insert"),
+    # the CLI's build_index of the sift-small index
+    "build": (
+        "rng_round", "topr_merge", "search_expand", "rowwise_sqdist", "pairwise_sqdist",
+        "visited_insert",
+    ),
+}
+# the serving CLI's runs on a sift-small index (n = 20,000), each with
+# `--device cuda`, and the kernels each launches besides SERVE_CLI_EVERY
+# (the entry distance, the beam merge, the brute-force recall); the stats
+# line of every run must parse
+SERVE_CLI_EVERY = ("topr_merge", "rowwise_sqdist", "pairwise_sqdist")
+SERVE_CLI = (
+    ("static", ["--visited", "hashed"], ("search_expand", "visited_insert")),
+    ("filtered", ["--filter-labels", "100", "--selectivity", "0.1"], ("search_expand+filter",)),
+    ("int8-host", ["--precision", "int8", "--tier", "host"],
+     ("search_expand/int8", "pairwise_sqdist/int8")),
+    ("layout", ["--optimize-layout", "bfs"], ("search_expand",)),
+    ("corpus", ["--corpus-shards", "4"], ("search_expand",)),
+    ("mutable", ["--mutable", "--churn", "64", "--precision", "int8"],
+     ("gather_sqdist/int8", "rng_round/int8", "search_expand/int8+valid", "pairwise_sqdist/int8")),
+    ("engine", ["--engine", "--visited", "hashed", "--mix-ef", "32,64"],
+     ("search_expand", "visited_insert")),
+    ("shards", ["--shards", "1"], ("search_expand",)),
+)
 ROW_PATH = {**dict.fromkeys(MAIN_KERNELS, "main"), **dict.fromkeys(BF16_KERNELS, "bf16")}
 ROW_PATH.update(dict.fromkeys(DYN_KERNELS[:4], "dynamic"))
 ROW_PATH.update({"search_expand+filter": "filtered", "search_expand/int8+valid+filter": "tiered"})
@@ -289,6 +362,20 @@ def bound(nbytes: float, ops_fp32: float) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def gathered_sqdist(x, ni, nj, scale=None, offset=None, chunk: int = 1 << 22) -> torch.Tensor:
+    """B6's function as the composed PyTorch expression
+    `(x[ni] - x[nj]).square().sum(-1)` over dequantized rows, in chunks of
+    `chunk` pairs (one shot at M = 43.2M would hold ~66 GB of gathered
+    rows): the library yardstick of the `gather_sqdist` rows."""
+    out = torch.empty(ni.shape, dtype=torch.float32, device=ni.device)
+    for lo in range(0, ni.shape[0], chunk):
+        a, b = x[ni[lo : lo + chunk].long()], x[nj[lo : lo + chunk].long()]
+        if scale is not None:
+            a, b = a.float() * scale + offset, b.float() * scale + offset
+        out[lo : lo + chunk] = (a.float() - b.float()).square().sum(-1)
+    return out
+
+
 def unique_rows(ids: torch.Tensor) -> int:
     return int(torch.unique(ids[ids >= 0]).numel())
 
@@ -306,7 +393,7 @@ def close(got, want, what: str) -> float:
 # ---------------------------------------------------------------------------
 
 
-def phase_device() -> None:
+def phase_device() -> str:
     t0 = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -327,6 +414,7 @@ def phase_device() -> None:
         regs = [ln.strip() for ln in _build.ptxas_report(name).splitlines() if "registers" in ln]
         log(f"[build] {name}.cu {secs[name]:.1f}s; ptxas: {' | '.join(regs)}")
     log(f"[device] done in {time.perf_counter() - t0:.1f}s")
+    return smi.splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -600,7 +688,7 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
             ),
             rows_m * d * size + sdo + m6 * 12,
             m6 * (3 * d + dq),
-            None,
+            lambda: gathered_sqdist(data, owners, nj, sc, of),
             5,
         )
 
@@ -736,7 +824,7 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
         ),
         unique_rows(torch.cat([ci, cj])) * d * 4 + m8 * 12,
         m8 * 3 * d,
-        None,
+        lambda: gathered_sqdist(x, ci, cj),
         5,
         launches_of="gather_sqdist",
     )
@@ -1474,6 +1562,471 @@ def phase_nccl(cfg, parity) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: serving (the continuous-batching engine and the serving CLI)
+# ---------------------------------------------------------------------------
+
+
+class Recorder:
+    """A worker proxy keeping every batch's inputs and outputs and every
+    mutation, in the order the engine ran them."""
+
+    def __init__(self, worker):
+        self.worker, self.calls = worker, []
+
+    def search_batch(self, q, *, k, ef, fwords=None):
+        ids, dists = self.worker.search_batch(q, k=k, ef=ef, fwords=fwords)
+        self.calls.append(("query", q, k, ef, ids, dists, fwords))
+        return ids, dists
+
+    def apply_mutation(self, mut):
+        self.worker.apply_mutation(mut)
+        self.calls.append(("mutation", mut))
+
+
+class PlainCheck:
+    """Within the scope every kernel call made through `ops` runs as it
+    would (the kernel, counted among the launches) and is then held against
+    its plain version on the same inputs, with phase 2's checks. `calls`
+    maps a launch-count name to (calls held, the row counts they came in)."""
+
+    NAMES = (
+        "search_expand", "topr_merge", "rowwise_sqdist", "pairwise_sqdist", "visited_insert",
+        "rng_propagation_round", "gather_sqdist",
+    )
+
+    def __init__(self):
+        self.calls: dict = {}
+        self.err = 0.0  # the largest distance error held
+
+    def __enter__(self):
+        self.real = {name: getattr(ops, name) for name in self.NAMES}
+        for name, real in self.real.items():
+            setattr(ops, name, functools.partial(getattr(self, "_" + name), real))
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(ops, name, real)
+
+    def _held(self, name: str, rows: int, err: float = 0.0) -> None:
+        n, shapes = self.calls.get(name, (0, set()))
+        self.calls[name] = (n + 1, shapes | {rows})
+        self.err = max(self.err, err)
+
+    @staticmethod
+    def _plain(real, *args):
+        with ops.backend("ref"):
+            return real(*args)
+
+    def _search_expand(self, real, x, queries, nbrs, table, valid=None, vwords=None, fwords=None):
+        args = (x, queries, nbrs, table, valid, vwords, fwords)
+        got, want = real(*args), self._plain(real, *args)
+        name = _build.variant(
+            "search_expand", ops.parts(x)[0].dtype, valid=valid is not None,
+            filter=vwords is not None,
+        )
+        q = queries.shape[0]
+        if not all(torch.equal(got[i], want[i]) for i in range(len(got)) if i != 1):
+            raise AssertionError(f"{name} at Q={q}: ids / fresh / allowed differ from the plain version")
+        live = want[0] >= 0
+        self._held(name, q, close(got[1][live], want[1][live], f"{name} at Q={q}"))
+        return got
+
+    def _topr_merge(self, real, ids, dists, r):
+        got, want = real(ids, dists, r), self._plain(real, ids, dists, r)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"topr_merge at {tuple(ids.shape)}: differs from the plain version")
+        self._held("topr_merge", ids.shape[0])
+        return got
+
+    def _rowwise_sqdist(self, real, x, y):
+        got, want = real(x, y), self._plain(real, x, y)
+        self._held("rowwise_sqdist", x.shape[0], close(got, want, "rowwise_sqdist"))
+        return got
+
+    def _pairwise_sqdist(self, real, x, y):
+        got, want = real(x, y), self._plain(real, x, y)
+        xs, ys = (ref.dequant_rows(*ops.parts(t)) for t in (x, y))
+        scale = (xs * xs).sum(-1)[:, None] + (ys * ys).sum(-1)[None, :]
+        err = (got - want).abs()
+        name = _build.variant("pairwise_sqdist", ops.parts(x)[0].dtype, ops.parts(y)[0].dtype)
+        if bool((err > PAIRWISE_REL * scale + 1e-6).any()):
+            raise AssertionError(f"{name} at M={xs.shape[0]}: outside its tolerance")
+        self._held(name, xs.shape[0], float(err.max()))
+        return got
+
+    def _visited_insert(self, real, table, ids):
+        before = table.clone()
+        got = real(table, ids)
+        if not torch.equal(got, self._plain(real, before, ids)):
+            raise AssertionError(f"visited_insert at {tuple(table.shape)}: differs from the loop")
+        self._held("visited_insert", table.shape[0])
+        return got
+
+    def _rng_propagation_round(self, real, x, ids, dists, si, sj):
+        args = (x, ids, dists, si, sj)
+        got, want = real(*args), self._plain(real, *args)
+        err, _ = check_rng_round(got, want, dists, si, sj)
+        self._held(_build.variant("rng_round", ops.parts(x)[0].dtype), ids.shape[0], err)
+        return got
+
+    def _gather_sqdist(self, real, x, ni, nj):
+        got, want = real(x, ni, nj), self._plain(real, x, ni, nj)
+        name = _build.variant("gather_sqdist", ops.parts(x)[0].dtype)
+        self._held(name, ni.shape[0], close(got, want, name))
+        return got
+
+    def summary(self, needed) -> str:
+        """The calls held, by kernel; raises unless every kernel of
+        `needed` was held at least once."""
+        missing = [name for name in needed if name not in self.calls]
+        if missing:
+            raise AssertionError(f"no call held against its plain version: {missing}")
+        return ", ".join(
+            f"{name} {n} at rows {sorted(rows)}" for name, (n, rows) in sorted(self.calls.items())
+        )
+
+
+def plain_checked(label: str, worker, calls, needed, same: bool, then=None) -> None:
+    """The first engine batch of every (rows, ef, filtered) shape in
+    `calls` (a Recorder's), rerun through `worker` under PlainCheck; its
+    result bitwise the engine's where `same` (the worker's state is the one
+    the batch ran on). `then(worker)` runs last, under the same check."""
+    t0 = time.perf_counter()
+    firsts: dict = {}
+    for call in calls:
+        if call[0] == "query":
+            firsts.setdefault((call[1].shape[0], call[3], call[6] is not None), call)
+    with PlainCheck() as chk:
+        for _, q, k, ef, ids, dists, fw in firsts.values():
+            got = worker.search_batch(q, k=k, ef=ef, fwords=fw)
+            if same and not (np.array_equal(got[0], ids) and np.array_equal(got[1], dists)):
+                raise AssertionError(f"{label}: a batch rerun under the check differs")
+        if then is not None:
+            then(worker)
+    log(
+        f"[serving] {label}: every kernel call of {len(firsts)} engine batches (the first of "
+        f"each (rows, ef, filtered) shape) held against its plain version, max abs dist err "
+        f"{chk.err:.3g} ({time.perf_counter() - t0:.2f}s): {chk.summary(needed)}"
+    )
+
+
+def serve_trace(label: str, worker, make_trace, nq: int):
+    """serve --engine's protocol: a closed-loop replay of the whole trace
+    (everything at t = 0) measures the capacity, then the open-loop replay
+    at SERVE_LOAD x capacity. Returns (engine, trace, rids, stats of the
+    open loop, the closed loop's log)."""
+    eng = AE.AnnEngine(worker, AE.EngineConfig(**SERVE_CFG))
+    t0 = time.perf_counter()
+    warm = AE.replay(eng, [dataclasses.replace(ev, t=0.0) for ev in make_trace(1.0)])
+    for rid in warm.values():
+        eng.take_result(rid)
+    w = eng.stats()
+    capacity = max(w.qps, 1.0)
+    warm_log = list(eng.log)
+    probe_s = time.perf_counter() - t0
+    eng.reset_stats()
+    offered = SERVE_LOAD * capacity
+    trace = make_trace(offered)
+    t0 = time.perf_counter()
+    rids = AE.replay(eng, trace)
+    s = eng.stats()
+    if w.n_completed != nq or s.n_completed != nq or w.n_rejected or s.n_rejected:
+        raise AssertionError(f"{label}: {w.n_completed} / {s.n_completed} of {nq} completed")
+    mut = ""
+    if s.n_mutations:
+        mut = f", {s.mutations_per_sec:.0f} mutations/s ({s.n_mutations} vectors)"
+    log(
+        f"[serving] {label}: capacity {capacity:.0f} QPS (closed loop, {nq} requests in "
+        f"{probe_s:.2f}s, p99 {w.p99_ms:.1f} ms); open loop offered {offered:.0f} QPS: achieved "
+        f"{s.qps:.0f} QPS, p50 {s.p50_ms:.2f} ms, p99 {s.p99_ms:.2f} ms, occupancy "
+        f"{s.mean_occupancy:.3f}, n_buckets {s.n_buckets}, completed {s.n_completed}, "
+        f"rejected {s.n_rejected}{mut}; {time.perf_counter() - t0:.2f}s"
+    )
+    return eng, trace, rids, s, warm_log
+
+
+def _same_rows(got, ids, dists, k: int) -> bool:
+    return np.array_equal(got.ids, ids[:k]) and np.array_equal(got.dists, dists[:k])
+
+
+def twin_of(idx):
+    """A `DynamicIndex` holding a copy of `idx`'s state (its own buffers,
+    the same stateless draws)."""
+    return DynamicIndex.from_state(
+        x=idx.x.clone(),
+        store=None if idx.store is None else idx.store._replace(data=idx.store.data.clone()),
+        pool=Pool(idx.pool.ids.clone(), idx.pool.dists.clone()),
+        valid=idx.valid.clone(),
+        labels=idx.labels.clone(),
+        size=idx.size,
+        n_live=idx.n_live,
+        next_label=idx._next_label,
+        entry=None if idx._entry is None else idx._entry.clone(),
+        rounds_run=idx.rounds_run,
+        cfg=idx.cfg,
+        draws=idx.draws,
+        device=idx.device,
+    )
+
+
+def recall_of(got, trace, rows, truth) -> float:
+    """recall@k of the results `got[i]` for the requests `rows` of `trace`,
+    each at its own k, against phase 4's truth."""
+    hits = sum(len(set(got[i].ids.tolist()) & set(truth[i, : trace[i].k].tolist())) for i in rows)
+    return hits / sum(trace[i].k for i in rows)
+
+
+def serving_static(x, queries, pool, truth, store, fw, k_cap: int):
+    """The static worker over phase 4's graph: every other request filtered
+    at s = 0.1 against 4d's labels; each result bitwise its row of one
+    direct search per (ef, filtered) group, the first SERVE_Q1 also of a
+    Q = 1 search; every kernel call of one batch a shape held against its
+    plain version."""
+    dev = x.device
+    nq = queries.shape[0]
+    q_np, fw_np = queries.cpu().numpy(), fw.cpu().numpy()
+    fwords = [fw_np[i] if i % 2 == 0 else None for i in range(nq)]
+
+    def make(offered):
+        return AE.synth_trace(
+            np.random.default_rng(SEED + 70), q_np, offered_qps=offered, k_choices=SERVE_K,
+            ef_choices=SERVE_EF, fwords=fwords,
+        )
+
+    ops.reset_launch_counts()
+    worker = AE.StaticWorker(x, pool.ids, visited="hashed", labels=store, device=dev)
+    rec = Recorder(worker)
+    eng, trace, rids, s, _ = serve_trace("static", rec, make, nq)
+    path_counts("serving-static", ops.launch_counts(), SERVE_KERNELS["static"], [])
+    got = [eng.take_result(rids[i]) for i in range(nq)]  # query i is event i (no churn)
+
+    t0 = time.perf_counter()
+    cfg = AE.EngineConfig(**SERVE_CFG)
+    groups: dict = {}
+    for i, ev in enumerate(trace):
+        key = (AE.normalize_ef(cfg, ev.k, ev.ef, ev.fwords is not None), ev.fwords is not None)
+        groups.setdefault(key, []).append(i)
+    bad = 0
+    for (ef, filt), rows in sorted(groups.items()):
+        r_t = torch.tensor(rows, device=dev)
+        res = search(
+            x, pool.ids, queries[r_t], k=min(k_cap, ef), ef=ef, entry=worker.entry,
+            visited="hashed", labels=store if filt else None, filter=fw[r_t] if filt else None,
+            overfetch=1, device=dev,
+        )
+        ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+        bad += sum(not _same_rows(got[i], ids[j], dists[j], trace[i].k) for j, i in enumerate(rows))
+    for i in range(SERVE_Q1):
+        filt = trace[i].fwords is not None
+        res = search(
+            x, pool.ids, queries[i : i + 1], k=trace[i].k,
+            ef=AE.normalize_ef(cfg, trace[i].k, trace[i].ef, filt), entry=worker.entry,
+            visited="hashed", labels=store if filt else None,
+            filter=fw[i : i + 1] if filt else None, overfetch=1, device=dev,
+        )
+        bad += not _same_rows(got[i], res.ids.cpu().numpy()[0], res.dists.cpu().numpy()[0],
+                              trace[i].k)
+    if bad:
+        raise AssertionError(f"static engine: {bad} results differ from the direct searches")
+    plain = [i for i in range(nq) if trace[i].fwords is None]
+    recall = recall_of(got, trace, plain, truth)
+    filt_rows = [i for i in range(nq) if trace[i].fwords is not None]
+    ids_f = torch.full((len(filt_rows), max(SERVE_K)), -1, dtype=torch.int64)
+    for j, i in enumerate(filt_rows):
+        ids_f[j, : trace[i].k] = torch.from_numpy(got[i].ids.astype(np.int64))
+    frac = predicate_fraction(
+        ids_f.to(dev), fw[torch.tensor(filt_rows, device=dev)], store.words
+    )
+    log(
+        f"[serving] static: every result bitwise its row of {len(groups)} direct searches (one a "
+        f"(ef, filtered) group at k_exec, sliced to k) and the first {SERVE_Q1} of Q = 1 "
+        f"searches ({time.perf_counter() - t0:.2f}s); recall@k of the {len(plain)} unfiltered "
+        f"requests {recall:.4f} (floor {SERVE_RECALL_FLOOR}); predicate fraction of the "
+        f"{len(filt_rows)} filtered {frac}"
+    )
+    if frac != 1.0 or recall < SERVE_RECALL_FLOOR:
+        raise AssertionError(f"static engine: predicate fraction {frac}, recall {recall:.4f}")
+
+    def construct(_):  # the worker's medoid (B5 at M = 1), under the check too
+        again = AE.StaticWorker(x, pool.ids, visited="hashed", labels=store, device=dev)
+        if not torch.equal(again.entry, worker.entry):
+            raise AssertionError("static worker: the entry differs under the check")
+
+    plain_checked("static", worker, rec.calls, SERVE_KERNELS["static"], same=True, then=construct)
+    return trace, s
+
+
+def serving_dynamic(x, queries, idx):
+    """The dynamic worker on 4b's int8 index with churn; the log replayed
+    on a twin index from the same state: every result bitwise."""
+    dev = x.device
+    g = torch.Generator(dev).manual_seed(SEED + 71)
+    churn = [
+        synthetic.queries_from(g, x, SERVE_CHURN, noise=0.1).cpu().numpy()
+        for _ in range(SERVE_DYN_Q // SERVE_CHURN_EVERY)
+    ]
+    q_np = queries[:SERVE_DYN_Q].cpu().numpy()
+
+    def make(offered):
+        return AE.synth_trace(
+            np.random.default_rng(SEED + 72), q_np, offered_qps=offered, k_choices=SERVE_K,
+            ef_choices=SERVE_EF, mutation_every=SERVE_CHURN_EVERY, churn_vectors=churn,
+        )
+
+    twin = twin_of(idx)
+    ops.reset_launch_counts()
+    rec = Recorder(AE.DynamicWorker(idx, visited="hashed"))
+    eng, _, _, _, warm_log = serve_trace("dynamic", rec, make, SERVE_DYN_Q)
+    path_counts("serving-dynamic", ops.launch_counts(), SERVE_KERNELS["dynamic"], [])
+
+    t0 = time.perf_counter()
+    entries = warm_log + eng.log
+    if len(entries) != len(rec.calls):
+        raise AssertionError("dynamic engine: the log and the worker's calls disagree")
+    bad = batches = 0
+    for (kind, key, n), call in zip(entries, rec.calls):
+        if kind == "query":
+            _, q, k, ef, ids, dists, _ = call
+            res = twin.search(torch.from_numpy(q[:n]), k=k, ef=ef, visited="hashed", overfetch=1)
+            bad += not (
+                np.array_equal(res.ids.cpu().numpy(), ids[:n])
+                and np.array_equal(res.dists.cpu().numpy(), dists[:n])
+            )
+            batches += 1
+        elif key == "insert":
+            twin.insert(torch.from_numpy(call[1].vectors))
+        else:
+            twin.delete(twin.oldest_live(n))
+    same = _same((idx.pool.ids, idx.labels, idx.valid), (twin.pool.ids, twin.labels, twin.valid))
+    if bad or not same:
+        raise AssertionError(f"dynamic engine: {bad} of {batches} batches differ from the twin")
+    log(
+        f"[serving] dynamic: the log's {batches} query batches and "
+        f"{len(entries) - batches} mutations replayed on a twin index: every result, the pools, "
+        f"labels and validity bitwise ({time.perf_counter() - t0:.2f}s); size {idx.size}, "
+        f"live {idx.n_live}, rounds_run {idx.rounds_run}"
+    )
+    inserts = [c[1] for c in rec.calls if c[0] == "mutation" and c[1].kind == "insert"]
+
+    def churn_pair(worker):  # the twin moves on: one more insert and delete_oldest
+        worker.apply_mutation(inserts[0])
+        worker.apply_mutation(AE.MutationRequest(kind="delete_oldest", n_items=SERVE_CHURN))
+
+    # the batches rerun on the twin's final state: the kernels against their
+    # plain versions, not the results against the engine's
+    plain_checked(
+        "dynamic", AE.DynamicWorker(twin, visited="hashed"), rec.calls, SERVE_KERNELS["dynamic"],
+        same=False, then=churn_pair,
+    )
+
+
+def serving_sharded(x, queries, pool, truth, static_trace, k_cap: int):
+    """The sharded worker over phase 4's graph at S = 4: the static trace's
+    first SERVE_SHARD_Q requests unfiltered, each result bitwise its row
+    of a replicated search per ef; every kernel call of one batch a shape
+    held against its plain version."""
+    dev = x.device
+    sidx = CS.shard(x, pool, CORPUS_SHARDS, device=dev)
+    events = [dataclasses.replace(ev, fwords=None) for ev in static_trace[:SERVE_SHARD_Q]]
+    rate = SERVE_SHARD_Q / events[-1].t  # the static trace's arrival rate
+
+    def make(offered):
+        return [dataclasses.replace(ev, t=ev.t * rate / offered) for ev in events]
+
+    ops.reset_launch_counts()
+    worker = AE.ShardedWorker(sidx, visited="hashed")
+    rec = Recorder(worker)
+    eng, trace, rids, _, _ = serve_trace(f"sharded S={CORPUS_SHARDS}", rec, make, SERVE_SHARD_Q)
+    path_counts("serving-sharded", ops.launch_counts(), SERVE_KERNELS["sharded"], [])
+    got = [eng.take_result(rids[i]) for i in range(SERVE_SHARD_Q)]
+    cfg = AE.EngineConfig(**SERVE_CFG)
+    bad = 0
+    for ef in sorted({AE.normalize_ef(cfg, ev.k, ev.ef, False) for ev in trace}):
+        rows = [i for i, ev in enumerate(trace) if AE.normalize_ef(cfg, ev.k, ev.ef, False) == ef]
+        res = search(
+            x, pool.ids, queries[torch.tensor(rows, device=dev)], k=min(k_cap, ef), ef=ef,
+            entry=sidx.entry, visited="hashed", overfetch=1, device=dev,
+        )
+        ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+        bad += sum(not _same_rows(got[i], ids[j], dists[j], trace[i].k) for j, i in enumerate(rows))
+    recall = recall_of(got, trace, range(SERVE_SHARD_Q), truth)
+    if bad or recall < SERVE_RECALL_FLOOR:
+        raise AssertionError(
+            f"sharded engine: {bad} results differ from the replicated search, recall {recall:.4f}"
+        )
+    log(
+        f"[serving] sharded: every result bitwise its row of the replicated search at its ef; "
+        f"recall@k {recall:.4f} (floor {SERVE_RECALL_FLOOR})"
+    )
+    plain_checked(
+        f"sharded S={CORPUS_SHARDS}", worker, rec.calls, SERVE_KERNELS["sharded"], same=True
+    )
+
+
+def cli_fields(line: str) -> dict:
+    """The serving CLI's stats line as {name: value}: every field a number
+    (a trailing "ms" dropped) but the named words."""
+    words = {"backend", "visited", "precision", "tier", "opt_layout", "device"}
+    out = {}
+    for name, value in (f.split("=", 1) for f in line.split() if "=" in f):
+        out[name] = value if name in words else float(value.removesuffix("ms"))
+    return out
+
+
+def serving_cli(dev) -> None:
+    """The serving CLI in process on a sift-small index built by the
+    port's build_index CLI, one run a mode; the launch counts zeroed and
+    read around the build and around each mode."""
+    out_dir = Path(__file__).resolve().parent / "build" / "serve_cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    index = str(out_dir / "sift-small.idx.npz")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        built = build_cli.main(["--dataset", "sift-small", "--out", index, "--device", str(dev)])
+    path_counts("serving-cli-build", ops.launch_counts(), SERVE_KERNELS["build"], [])
+    log(
+        f"[serving] cli build_index --dataset sift-small: {time.perf_counter() - t0:.2f}s "
+        f"(build {built['build_s']:.2f}s, recall@10 {built['recall_at_10']:.4f})"
+    )
+    for name, extra, kernels in SERVE_CLI:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = serve_cli.main(["--index", index, "--device", str(dev), *extra])
+        path_counts(f"serving-cli-{name}", ops.launch_counts(), SERVE_CLI_EVERY + kernels, [])
+        f = cli_fields(out["line"])
+        if f.get("pred_ok", 1.0) != 1.0 or not f["device"].startswith(dev.type):
+            raise AssertionError(f"cli {name}: {out['line']}")
+        log(f"[serving] cli {name} ({time.perf_counter() - t0:.2f}s): {out['line']}")
+
+
+def phase_serving(x, queries, pool, truth, filtered, idx, card: str) -> None:
+    """4h: the engine's three workers at full width, then the serving CLI;
+    one engine batch under the profiler (the host's share of a batch)."""
+    t0 = time.perf_counter()
+    dev = x.device
+    store, fw, _ = filtered
+    k_cap = AE.EngineConfig().k_cap
+    log(f"[serving] on {card} (nvidia-smi name, power limit)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    truth_np = truth.cpu().numpy()
+    trace, _ = serving_static(x, queries, pool, truth_np, store, fw, k_cap)
+    # one full batch as the engine runs it: 32 rows, ef 64, hashed
+    worker = AE.StaticWorker(x, pool.ids, visited="hashed", device=dev)
+    q32 = queries[: SERVE_CFG["max_batch"]].cpu().numpy()
+    worker.search_batch(q32, k=k_cap, ef=64)
+    profiled("engine batch: static worker, 32 queries, ef 64 hashed",
+             lambda: worker.search_batch(q32, k=k_cap, ef=64))
+    serving_dynamic(x, queries, idx)
+    serving_sharded(x, queries, pool, truth_np, trace, k_cap)
+    serving_cli(dev)
+    log(f"[serving] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    log(f"[serving] done in {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: where the time goes (after the main path's counts are read)
 # ---------------------------------------------------------------------------
 
@@ -1576,7 +2129,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a card")
     t0 = time.perf_counter()
-    phase_device()
+    card = phase_device()
     dev = torch.device("cuda", 0)
     cfg = SIFT1M.build
     g = torch.Generator(dev).manual_seed(SEED)
@@ -1602,6 +2155,8 @@ def main() -> None:
     phase_nccl(cfg, parity)
     torch.cuda.empty_cache()
     phase_profile(x, queries, pool, truth, cfg, idx)
+    torch.cuda.empty_cache()
+    phase_serving(x, queries, pool, truth, filtered, idx, card)
     log(f"[total] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     kind = torch.cuda.get_device_name(0)

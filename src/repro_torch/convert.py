@@ -18,6 +18,7 @@ from repro_torch.core.labels import LabelStore
 from repro_torch.core.layout import OptimizedIndex
 from repro_torch.core.pools import Pool
 from repro_torch.core.vecstore import HostTier, VectorStore
+from repro_torch.serve.ann_engine import DynamicWorker, ShardedWorker, StaticWorker
 
 
 def from_jax(pool_ids, pool_dists, x, device="cuda"):
@@ -60,6 +61,12 @@ def labels_from_jax(words, labels=None, device="cuda") -> LabelStore:
         _device.put(words, torch.int32, dev),
         None if labels is None else _device.put(labels, torch.int32, dev),
     )
+
+
+def _is_host(a) -> bool:
+    """Whether a reference rescore operand is its host tier: an object (not
+    an array, not a store) holding its rows as `data`."""
+    return a is not None and not isinstance(a, tuple) and not hasattr(a, "__array__")
 
 
 def _operand(a, dev: torch.device):
@@ -163,7 +170,7 @@ def corpus_sharded_from_jax(index, device="cuda") -> CorpusShardedIndex:
         return None if a is None else _device.put(np.asarray(a), dtype, dev)
 
     resc = index.rescores
-    if resc is not None and not hasattr(resc, "__array__"):
+    if _is_host(resc):
         rescores = HostTier(np.asarray(resc.data, np.float32))
     else:
         rescores = opt(resc, torch.float32)
@@ -182,4 +189,78 @@ def corpus_sharded_from_jax(index, device="cuda") -> CorpusShardedIndex:
         entry_valid=opt(index.entry_valid, torch.bool),
         entry_words=opt(index.entry_words, torch.int32),
         n=int(index.n),
+    )
+
+
+def static_worker_from_jax(worker, device="cuda") -> StaticWorker:
+    """A reference `serve.ann_engine.StaticWorker` as the port's, on
+    `device`: its traversal tier (an array or a store) and rescore tier (an
+    array, a store, or its host tier, which stays a `HostTier` in host
+    memory), graph, entry, tombstone mask, label words and `ids_map`, read
+    as arrays; the visited-set choice carries over."""
+    dev = _device.resolve(device)
+
+    def opt(a):
+        return None if a is None else np.asarray(a)
+
+    resc = worker.rescore
+    if _is_host(resc):
+        resc = HostTier(np.asarray(resc.data, np.float32))
+    elif resc is not None:
+        resc = _operand(resc, dev)
+    return StaticWorker(
+        _operand(worker.x, dev),
+        np.asarray(worker.graph_ids),
+        entry=np.asarray(worker.entry),
+        visited=worker.visited,
+        visited_cap=worker.visited_cap,
+        valid=opt(worker.valid),
+        rescore=resc,
+        labels=opt(worker.vwords),
+        ids_map=opt(worker.ids_map),
+        device=dev,
+    )
+
+
+def dynamic_worker_from_jax(
+    worker, *, cfg: DynamicConfig = DynamicConfig(), draws=None, device="cuda"
+) -> DynamicWorker:
+    """A reference `DynamicWorker` as the port's: its index's state carried
+    across by `dynamic_from_jax` (with `cfg`, the reference's config as the
+    port's, and `draws` for the rounds of later inserts), its visited-set
+    choice as it is."""
+    idx = worker.index
+    store = None
+    if idx.store is not None:
+        store = tuple(None if a is None else np.asarray(a) for a in idx.store)
+    port = dynamic_from_jax(
+        x=np.asarray(idx.x),
+        store=store,
+        pool_ids=np.asarray(idx.pool.ids),
+        pool_dists=np.asarray(idx.pool.dists),
+        valid=np.asarray(idx.valid),
+        labels=np.asarray(idx.labels),
+        size=idx.size,
+        n_live=idx.n_live,
+        next_label=idx._next_label,
+        entry=None if idx._entry is None else np.asarray(idx._entry),
+        rounds_run=idx.rounds_run,
+        vlabels=None if idx.vlabels is None else np.asarray(idx.vlabels),
+        n_labels=idx.n_labels,
+        cfg=cfg,
+        draws=draws,
+        device=device,
+    )
+    return DynamicWorker(port, visited=worker.visited, visited_cap=worker.visited_cap)
+
+
+def sharded_worker_from_jax(worker, device="cuda") -> ShardedWorker:
+    """A reference `ShardedWorker` as the port's: its index carried across
+    by `corpus_sharded_from_jax`, its shards in this process (the
+    reference's mesh is not carried; pass the port's `group=` to
+    `ShardedWorker` to run them on ranks)."""
+    return ShardedWorker(
+        corpus_sharded_from_jax(worker.index, device=device),
+        visited=worker.visited,
+        visited_cap=worker.visited_cap,
     )

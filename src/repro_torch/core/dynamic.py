@@ -561,6 +561,13 @@ class DynamicIndex:
             self.compact()
         return int(slots.numel())
 
+    def oldest_live(self, n: int) -> torch.Tensor:
+        """The `n` oldest live external labels, ascending. Labels are issued
+        in increasing order, so the oldest are the smallest; slot order is
+        not label order after a layout pass, hence the sort."""
+        live = self.labels[: self.size][self.valid[: self.size]]
+        return torch.sort(live).values[:n]
+
     def compact(self) -> None:
         """Drop tombstoned rows, remap neighbor ids, re-sort pools.
 

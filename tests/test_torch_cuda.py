@@ -50,6 +50,7 @@ from repro_torch.core import (
     brute_force_knn,
     build_graph,
     encode,
+    medoid,
     recall_at_k,
     search,
 )
@@ -610,3 +611,102 @@ def test_filtered_tiered_and_layout_paths_on_the_card(dev):
     for a, b in zip(*out):
         assert torch.equal(a, b)
     assert not torch.isin(out[1].ids, torch.arange(0, 5000, 9, device=dev)).any()
+
+
+# bucket sizes of the engine tests: every power-of-two bucket from 1 to 64,
+# most of them padded
+ENGINE_GROUPS = (1, 2, 3, 5, 8, 13, 21, 33, 64)
+
+
+@pytest.mark.parametrize(
+    "case", ["fp32-hashed", "int8-rescore", "bf16-rescore", "int8-host", "filtered"]
+)
+def test_engine_on_the_card_is_bitwise_direct_search(dev, case):
+    """The engine's batches, padded into buckets of 1 to 64 rows, give every
+    request the ids and dists of a Q = 1 search and of one batched search
+    of every request, on the card (Q-composition invariance)."""
+    from repro_torch.serve import ann_engine as AE
+
+    g = torch.Generator(dev).manual_seed(12)
+    x = synthetic.make_preset(g, "sift-like", 5000)
+    nq = sum(ENGINE_GROUPS)
+    queries = synthetic.queries_from(g, x, nq)
+    pool = build_graph(x, GRNNDConfig(s=12, r=24, t1=3, t2=3, pairs_per_vertex=24),
+                       draws=Draws(13, dev), device=dev)
+    kw = dict(visited="hashed", rescore=None)
+    xt = x
+    if case != "fp32-hashed" and case != "filtered":
+        xt = encode(x, case[:4])
+        kw = dict(visited="dense", rescore=HostTier(x) if case == "int8-host" else x)
+    labels = encode_labels(torch.randint(0, 40, (5000,), generator=g, device=dev), 40)
+    fw = random_query_filters(g, nq, 40, 0.1) if case == "filtered" else None
+    entry = medoid(xt)
+    worker = AE.StaticWorker(xt, pool.ids, entry=entry, labels=labels, device=dev, **kw)
+    eng = AE.AnnEngine(worker, AE.EngineConfig(ef_menu=(64,), max_batch=64))
+    q_np = queries.cpu().numpy()
+    f_np = None if fw is None else fw.cpu().numpy()
+    rids, lo = [], 0
+    for size in ENGINE_GROUPS:
+        for i in range(lo, lo + size):
+            rids.append(eng.submit(q_np[i], k=10, ef=64,
+                                   filter_words=None if f_np is None else f_np[i]))
+        eng.run()
+        lo += size
+    assert sorted({e[1][0] for e in eng.log}) == [1, 2, 4, 8, 16, 32, 64]
+    got = [eng.take_result(r) for r in rids]
+    skw = dict(k=16, ef=64, entry=entry, labels=labels, overfetch=1, device=dev, **kw)
+    batched = search(xt, pool.ids, queries, filter=fw, **skw)
+    for i in range(nq):
+        one = search(xt, pool.ids, queries[i : i + 1],
+                     filter=None if fw is None else fw[i : i + 1], **skw)
+        for res in (one, batched):
+            j = 0 if res is one else i
+            assert np.array_equal(got[i].ids, res.ids[j, :10].cpu().numpy()), (case, i)
+            assert np.array_equal(got[i].dists, res.dists[j, :10].cpu().numpy()), (case, i)
+    if fw is not None:
+        ids = torch.from_numpy(np.stack([r.ids for r in got])).to(dev)
+        assert predicate_fraction(ids, fw, labels.words) == 1.0
+
+
+def test_dynamic_engine_on_the_card_matches_twin_index(dev):
+    """An int8 index serving through the engine with churn (insert, then
+    delete_oldest, between query batches) equals a twin index given the
+    same mutations directly, each query batch searched at its real rows:
+    results, pools, labels and validity bitwise (the dynamic index is
+    deterministic on the card)."""
+    from repro_torch.serve import ann_engine as AE
+
+    g = torch.Generator(dev).manual_seed(14)
+    x = synthetic.make_preset(g, "sift-like", 5000)
+    queries = synthetic.queries_from(g, x, 96)
+    pool = build_graph(x[:4500], GRNNDConfig(s=12, r=24, t1=3, t2=3, pairs_per_vertex=24),
+                       draws=Draws(15, dev), device=dev)
+    dcfg = DynamicConfig(seed_k=8, seed_ef=48, refine_rounds=2, pairs_per_vertex=24,
+                         precision="int8")
+    idx, twin = (DynamicIndex(x[:4500], pool, dcfg, draws=Draws(16, dev), device=dev)
+                 for _ in range(2))
+    eng = AE.AnnEngine(AE.DynamicWorker(idx, visited="hashed"),
+                       AE.EngineConfig(ef_menu=(64,), max_batch=20, query_quantum=1))
+    q_np = queries.cpu().numpy()
+    rids = [eng.submit(q_np[i], k=10, ef=64) for i in range(96)]
+    for b in range(4):
+        eng.submit_insert(x[4500 + 125 * b : 4625 + 125 * b].cpu().numpy())
+        eng.submit_delete_oldest(125)
+    eng.run()
+    got = [eng.take_result(r) for r in rids]
+    lo = inserted = 0
+    for kind, key, n in eng.log:
+        if kind == "query":
+            res = twin.search(queries[lo : lo + n], k=16, ef=64, visited="hashed", overfetch=1)
+            for j in range(n):
+                assert np.array_equal(got[lo + j].ids, res.ids[j, :10].cpu().numpy())
+                assert np.array_equal(got[lo + j].dists, res.dists[j, :10].cpu().numpy())
+            lo += n
+        elif key == "insert":
+            twin.insert(x[4500 + inserted : 4500 + inserted + n])
+            inserted += n
+        else:
+            twin.delete(twin.oldest_live(n))
+    assert lo == 96 and inserted == 500
+    assert torch.equal(idx.pool.ids, twin.pool.ids) and torch.equal(idx.pool.dists, twin.pool.dists)
+    assert torch.equal(idx.labels, twin.labels) and torch.equal(idx.valid, twin.valid)

@@ -7,8 +7,9 @@
     so they are compared by the recall they reach);
   * the package imports neither JAX nor the JAX package;
   * entry points default to the card and raise without one (the build in
-    every order, the corpus-sharded index, build and search, and the
-    distributed search and build, before any process group is asked for);
+    every order, the corpus-sharded index, build and search, the
+    distributed search and build, before any process group is asked for,
+    the serving engine's static worker and the serving CLI);
   * the launch CLI and `examples/quickstart_torch.py` run end to end on the
     CPU when asked to.
 """
@@ -42,7 +43,8 @@ from repro_torch.core import (
     sharded_build_graph,
     sharded_search,
 )
-from repro_torch.launch import build_index
+from repro_torch.launch import build_index, serve
+from repro_torch.serve import StaticWorker
 from test_torch_grnnd import jax_draws
 
 # the suite runs in parallel workers: one intra-op thread each keeps torch
@@ -94,8 +96,14 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 31  # every module was imported
-    for mod in ("repro_torch.core.corpus_shard", "repro_torch.core.distributed"):
+    assert int(out.stdout.split()[0]) >= 35  # every module was imported
+    for mod in (
+        "repro_torch.core.corpus_shard",
+        "repro_torch.core.distributed",
+        "repro_torch.serve",
+        "repro_torch.serve.ann_engine",
+        "repro_torch.launch.serve",
+    ):
         assert mod in out.stdout.split()
 
 
@@ -117,6 +125,10 @@ def test_entry_points_default_to_the_card():
         lambda: brute_force_knn(x, x[:2], 3),
         lambda: convert.from_jax(ids, x[:, :2], x),
         lambda: build_index.main(["--dataset", "sift-demo", "--out", "unused.npz"]),
+        lambda: build_index.main(["--dataset", "sift-demo", "--out", "unused.npz", "--sharded"]),
+        lambda: StaticWorker(x, ids),
+        lambda: serve.main(["--index", "unused.npz"]),
+        lambda: serve.main(["--index", "unused.npz", "--engine"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
