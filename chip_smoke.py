@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GRNND build, beam search, dynamic index, filtered
-search, host rescore tier, layout pass, sharded searches and serving layer
-on one NVIDIA card.
+search, host rescore tier, layout pass, sharded searches, serving layer and
+kNN-LM retrieval in an LM's decode loop on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, on a machine with a card
+    python3 chip_smoke.py --knn-states chiprun_out/knn_states.npz   # also save 4i's witness states
 
 Phases, each printing its own lines with seconds:
 
@@ -100,6 +101,35 @@ Phases, each printing its own lines with seconds:
      run a mode (static, filtered, int8 + host tier, layout, corpus shards,
      int8 mutable churn, the engine, `--shards 1` on NCCL): every stats line
      parses and `pred_ok` is 1.0;
+  4i. kNN-LM at gemma3-1b's full width, after phase 4h (random weights from
+     the seed, fp32 master weights, bf16 activations): 2,051 sequences of
+     512 Zipf tokens through `forward(return_hidden=True)`, 1,046,528
+     (post-`final_norm` hidden, next token) pairs of 2,048 of them in a
+     `DynamicDatastore` (GRNND build with `DEFAULT_BUILD_CFG`, int8
+     traversal + fp32 rescore, 4 source labels, k 8, ef 32, hashed visited
+     set); the states' geometry and the pools' true-neighbor share; recall@10
+     and the distance excess (0 at the true neighbors, ~1 at random rows)
+     of 1,000 held-out states at ef 32 / 128 / 512; at ef 32 the kernels'
+     excess within 0.01 of the plain versions' and 5 gaps under a random
+     graph's (and the pools' under random pools'); builds of the first
+     2^18 pairs at two seeds through both, each within 0.01 in pool and
+     search excess; the witness subset (2^14 keys) built and searched
+     through both at three seeds, which `--knn-states` saves for
+     the JAX reference on the CPU (`tests/_knn_witness.py`); 4,096 stored keys as
+     queries: where the own row is retrieved the vote picks its token (>=
+     0.99), the fused NLL stays within -log(1 - lam) of the pure LM's and
+     beats it on those queries; the fp32 datastore on 2^18 pairs bitwise
+     `knn_logits` on the array-backed store; `attach_engine()` retrieval of
+     256 queries bitwise the direct search; a source-filtered retrieval;
+     `ServeEngine` generation of 32 prompts x (128 + 64) greedy tokens with
+     both hooks, the datastore growing by 2,048, replayed on a twin from the
+     same state (tokens, pools, labels, validity and token table bitwise),
+     and without the hooks; every kernel call of one streaming insert and
+     one decode step's retrieval held against its plain version; then phase
+     2's rows at D = 1152 (B1 fp32 at C = N and int8 at an insert's
+     frontier, B3 int8 + valid and fp32 + valid at Q = 32 and 1,000, B6 int8
+     and fp32 at M = N·24, B4 at the init's block, B5 at the medoid and the
+     truth);
   5. where the time goes: torch.profiler over one propagation round, one
      hashed search (with the summed device time of `search_expand` and of
      `visited_insert`) and the same search with the dense mask, one insert
@@ -108,8 +138,9 @@ Phases, each printing its own lines with seconds:
      table and with the dense one, and the share of true 10-NN the built
      pools hold.
 
-Each path (4, 3b, 4b, 4c, 4d's filtered and layout paths, 4e, 4f, 4g, and 4h's
-three workers and its CLI runs) runs with the
+Each path (4, 3b, 4b, 4c, 4d's filtered and layout paths, 4e, 4f, 4g, 4h's
+three workers and its CLI runs, and 4i: the datastore's build, one
+source-filtered retrieval and the generation) runs with the
 launch counts set to 0 just before it and read just after; every kernel it
 runs must have launched. Then one JSON line {"kernels": [...]} and, last,
 {"ok": true, "device": ...}. Any failure raises and the exit code is
@@ -118,6 +149,7 @@ non-zero; without a card the script exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import functools
@@ -135,6 +167,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.grnnd_paper import SIFT1M  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     Draws,
@@ -143,6 +176,7 @@ from repro_torch.core import (  # noqa: E402
     DynamicIndex,
     brute_force_knn,
     build_graph,
+    distance_excess,
     encode,
     encode_labels,
     filtered_brute_force,
@@ -150,6 +184,7 @@ from repro_torch.core import (  # noqa: E402
     init_random,
     optimize,
     overfetch_ef,
+    pool_excess,
     predicate_fraction,
     random_query_filters,
     recall_at_k,
@@ -162,6 +197,7 @@ from repro_torch.core.labels import pack_ids  # noqa: E402
 from repro_torch.core.pools import stage_request_matrix  # noqa: E402
 from repro_torch.core.search import _table_insert, default_visited_cap  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.data.synthetic import token_stream  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.gather_l2 import gather_sqdist  # noqa: E402
 from repro_torch.kernels.pairwise_l2 import pairwise_sqdist, rowwise_sqdist  # noqa: E402
@@ -171,10 +207,14 @@ from repro_torch.kernels.topr_merge import topr_merge  # noqa: E402
 from repro_torch.kernels.visited_insert import visited_insert  # noqa: E402
 from repro_torch.launch import build_index as build_cli  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models import transformer as LM  # noqa: E402
+from repro_torch.retrieval import knn_lm as KNN  # noqa: E402
 from repro_torch.serve import ann_engine as AE  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
-# the module (the package exports its `search` function under the same name)
+# the modules (the package exports functions under the same names)
 search_mod = importlib.import_module("repro_torch.core.search")
+grnnd_mod = importlib.import_module("repro_torch.core.grnnd")
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
@@ -306,6 +346,47 @@ SERVE_CLI = (
      ("search_expand", "visited_insert")),
     ("shards", ["--shards", "1"], ("search_expand",)),
 )
+# kNN-LM (4i): gemma3-1b at full width, random weights; 2,048 sequences of
+# 512 Zipf tokens harvested (1,046,528 stored pairs at D = 1152), indexed at
+# int8 traversal + fp32 rescore with the hashed visited set
+KNN_ARCH = "gemma3-1b"
+KNN_SEQS, KNN_HELD_SEQS, KNN_SEQ_LEN, KNN_CHUNK = 2048, 3, 512, 128
+KNN_MIN_POS = 16  # held-out and memorization states: few identical prefixes here
+KNN_SOURCES, KNN_K, KNN_EF, KNN_LAM = 4, 8, 32, 0.25
+KNN_HELD, KNN_MEMO, KNN_ROUTED, KNN_FP32_N = 1_000, 4_096, 256, 1 << 18
+KNN_PROMPTS, KNN_PROMPT_LEN, KNN_NEW, KNN_INSERT_EVERY = 32, 128, 64, 8
+# no floor on recall by ids, nor on stored keys retrieving their own token
+# (they wait for trained weights, ROADMAP A.6): a randomly initialised
+# model's states lie near-isotropic on the sphere of radius sqrt(1152),
+# where neither the GRNND build nor a greedy walk finds many true neighbors
+# (recall@10 ~0.014 at ef 32 here; PERF.md, the kNN-LM findings). What the
+# phase holds instead is the distance excess (`distance_excess`: 0 at the
+# true neighbors, ~1 at random rows) of the search and of 2^18-pair builds
+# through the kernels, within KNN_EXCESS_GAP of the plain versions' on the
+# same inputs and draws, and KNN_CONTROL_GAPS gaps under a random graph's
+# search and random pools; and, where a stored key's own row is retrieved,
+# the vote picking its token. The gap is 2.5x the widest spread of six
+# sound 2^18-pair builds (kernels and plain versions at three seeds: 0.0039
+# in pool excess, 0.0024 in search excess; PERF.md, the kNN-LM findings)
+KNN_RECALL_EFS, KNN_OWN_FLOOR = (32, 128, 512), 0.99
+KNN_EXCESS_GAP, KNN_CONTROL_GAPS = 0.01, 5
+KNN_BUILD_SEEDS = (44, 45)  # each built through the kernels and the plain versions
+# the witness subset: 2^14 stored keys, 256 held-out states and 1,024 sampled
+# vertices, built and searched here through the kernels and the plain
+# versions at each seed;
+# `--knn-states PATH` saves them (bf16, as harvested) for
+# tests/_knn_witness.py, which runs the JAX reference on them on the CPU
+KNN_WIT_N, KNN_WIT_Q, KNN_WIT_V, KNN_WIT_SEEDS = 1 << 14, 256, 1024, (0, 1, 2)
+KNN_KERNELS = (
+    "rng_round", "rng_round/int8", "topr_merge", "search_expand/int8+valid",
+    "search_expand/int8+valid+filter", "rowwise_sqdist", "pairwise_sqdist/int8",
+    "gather_sqdist/int8", "visited_insert",
+)
+# the kernels of one streaming insert and one decode step's retrieval
+KNN_PLAIN = (
+    "search_expand/int8+valid", "topr_merge", "rowwise_sqdist", "visited_insert",
+    "rng_round/int8", "pairwise_sqdist/int8",
+)
 ROW_PATH = {**dict.fromkeys(MAIN_KERNELS, "main"), **dict.fromkeys(BF16_KERNELS, "bf16")}
 ROW_PATH.update(dict.fromkeys(DYN_KERNELS[:4], "dynamic"))
 ROW_PATH.update({"search_expand+filter": "filtered", "search_expand/int8+valid+filter": "tiered"})
@@ -322,6 +403,22 @@ ROW_PATH.update({"gather_sqdist[merge]": "corpus", "search_expand[shard]": "corp
 INSERT_EFS = {64: "main", 128: "main", 512: "filtered"}
 ROW_PATH.update(
     {f"visited_insert[H={default_visited_cap(ef)}]": path for ef, path in INSERT_EFS.items()}
+)
+# phase 2's rows at the kNN-LM shapes (D = 1152), made in phase 4i
+ROW_PATH.update(
+    dict.fromkeys(
+        [
+            "rng_round[knn]", "rng_round/int8[knn]", "gather_sqdist/int8[knn]",
+            "gather_sqdist[knn]", "rowwise_sqdist[knn]", "pairwise_sqdist/int8[knn,M=1]",
+            "pairwise_sqdist[knn,truth]",
+        ]
+        + [
+            f"{name}[knn,Q={q}]"
+            for name in ("search_expand/int8+valid", "search_expand+valid")
+            for q in (KNN_PROMPTS, KNN_HELD)
+        ],
+        "knn",
+    )
 )
 
 
@@ -924,7 +1021,7 @@ def path_counts(label: str, counts: dict, needed, rows) -> None:
         raise AssertionError(f"kernels never launched on the {label} path: {missing}")
     for row in rows:
         if ROW_PATH[row["name"]] == label:
-            row["launches"] = counts[row.get("launches_of", row["name"])]
+            row["launches"] = counts.get(row.get("launches_of", row["name"]), 0)
 
 
 class Copies:
@@ -1764,6 +1861,8 @@ def twin_of(idx):
         next_label=idx._next_label,
         entry=None if idx._entry is None else idx._entry.clone(),
         rounds_run=idx.rounds_run,
+        vlabels=None if idx.vlabels is None else idx.vlabels.clone(),
+        n_labels=idx.n_labels,
         cfg=idx.cfg,
         draws=idx.draws,
         device=idx.device,
@@ -2027,6 +2126,559 @@ def phase_serving(x, queries, pool, truth, filtered, idx, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: kNN-LM at gemma3-1b's full width (the dense-text LM stack, the
+# serving engine's hooks and retrieval over the dynamic index)
+# ---------------------------------------------------------------------------
+
+
+def knn_harvest(params, cfg, tokens):
+    """(keys (B·(S-1), D) fp32, next tokens) of every position but the last
+    of each sequence: post-`final_norm` hidden states of bf16 forwards,
+    KNN_CHUNK sequences a forward."""
+    b, s = tokens.shape
+    keys = torch.empty((b * (s - 1), cfg.d_model), dtype=torch.float32, device=tokens.device)
+    with torch.no_grad():
+        for lo in range(0, b, KNN_CHUNK):
+            h, _ = LM.forward(params, cfg, {"tokens": tokens[lo : lo + KNN_CHUNK]},
+                              act_dtype=torch.bfloat16, return_hidden=True)
+            keys[lo * (s - 1) : (lo + h.shape[0]) * (s - 1)] = h[:, :-1].reshape(-1, cfg.d_model)
+    return keys, tokens[:, 1:].reshape(-1).contiguous()
+
+
+def knn_twin(ds):
+    """A `DynamicDatastore` holding a copy of `ds`'s state."""
+    return KNN.DynamicDatastore(
+        twin_of(ds.index), ds.values.clone(), ds.vocab, k=ds.k, ef=ds.ef, tau=ds.tau,
+        visited=ds.visited,
+    )
+
+
+def knn_generate(ds, params, cfg, prompts, dev):
+    """The retrieval-fused greedy generation: tokens, seconds, and the
+    seconds spent in the streaming inserts."""
+    spent = [0.0]
+    add = ds.add
+
+    def timed_add(*a, **kw):
+        out, s = timed(lambda: add(*a, **kw))
+        spent[0] += s
+        return out
+
+    ds.add = timed_add
+    try:
+        stream = KNN.make_stream_hook(ds, insert_every=KNN_INSERT_EVERY)
+        eng = ServeEngine(cfg, params, s_max=prompts.shape[1] + KNN_NEW, act_dtype=torch.bfloat16,
+                          logit_hook=KNN.make_logit_hook(ds, lam=KNN_LAM), token_hook=stream,
+                          device=dev)
+        out, s = timed(lambda: eng.generate({"tokens": prompts}, max_new_tokens=KNN_NEW))
+        _, s_flush = timed(stream.flush)
+    finally:
+        del ds.add
+    return out["tokens"], s + s_flush, spent[0]
+
+
+def knn_chunked(fn, q, chunk: int = 1024) -> torch.Tensor:
+    return torch.cat([fn(q[lo : lo + chunk]) for lo in range(0, q.shape[0], chunk)])
+
+
+def knn_take(into: dict) -> None:
+    """Add the launch counts since the last reset to `into`, and reset."""
+    for name, c in ops.launch_counts().items():
+        into[name] = into.get(name, 0) + c
+    ops.reset_launch_counts()
+
+
+def knn_witness(keys, held, g, dev, klog, states_out) -> None:
+    """The port on the witness subset (KNN_WIT_*): a build and a search at
+    ef 32 (dense visited set, as the reference searches) through the
+    kernels and through the plain versions for each seed, read by recall
+    and distance excess; with `states_out` the states, the samples and the
+    truth go to an npz for tests/_knn_witness.py."""
+    n = keys.shape[0]
+    sub = torch.randperm(n, generator=g, device=dev)[:KNN_WIT_N].sort().values
+    wx, wq = keys[sub], held[:KNN_WIT_Q]
+    if not (torch.equal(wx.bfloat16().float(), wx) and torch.equal(wq.bfloat16().float(), wq)):
+        raise AssertionError("the harvested states are not bf16 values")
+    verts = torch.randperm(KNN_WIT_N, generator=g, device=dev)[:KNN_WIT_V]
+    rq = torch.randint(0, KNN_WIT_N, (KNN_WIT_Q, 10), generator=g, device=dev)
+    rv = torch.randint(0, KNN_WIT_N, (KNN_WIT_V, 10), generator=g, device=dev)
+    truth = brute_force_knn(wx, wq, 10, device=dev)
+    vknn = brute_force_knn(wx, wx[verts], 11, device=dev)[:, 1:]
+    for seed in KNN_WIT_SEEDS:
+        for name in ("auto", "ref"):
+            with ops.backend(name):
+                pool = build_graph(wx, KNN.DEFAULT_BUILD_CFG, draws=Draws(seed, dev), device=dev)
+                res = search(wx, pool.ids, wq, k=10, ef=KNN_EF, device=dev)
+            klog(f"witness subset ({KNN_WIT_N} keys, {KNN_WIT_Q} held-out states), "
+                 f"{'kernels' if name == 'auto' else 'plain versions'}, seed {seed}: recall@10 "
+                 f"at ef {KNN_EF} {recall_at_k(res.ids, truth):.4f}, excess "
+                 f"{distance_excess(wx, wq, res.ids, truth, rq):.4f}; pools hold "
+                 f"{recall_at_k(pool.ids[verts], vknn):.4f} of the true 10-NN, excess "
+                 f"{pool_excess(wx, verts, pool.ids, vknn, rv):.4f}")
+    if states_out:
+        def bits(t):
+            return t.bfloat16().view(torch.int16).cpu().numpy()
+
+        def cpu(t):
+            return t.cpu().numpy()
+
+        Path(states_out).parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(states_out, x=bits(wx), q=bits(wq), verts=cpu(verts), rq=cpu(rq),
+                            rv=cpu(rv), truth=cpu(truth), vknn=cpu(vknn))
+        klog(f"witness states saved to {states_out} ({Path(states_out).stat().st_size} B)")
+
+
+def phase_knn(card: str, rows, dev, states_out=None) -> None:
+    """4i: kNN-LM at gemma3-1b's full width: harvest, the datastore's build,
+    recall and distance excess (kernels against plain versions, against a
+    random graph, and on the witness subset), memorization, the fp32
+    datastore against the array-backed path, engine routing,
+    retrieval-fused generation replayed on a twin, every kernel call of one
+    decode step's retrieval and one streaming insert held against its plain
+    version, and phase 2's rows at D = 1152. The path's launches are
+    counted over the datastore's build, one source-filtered retrieval and
+    the generation; the checks' launches apart."""
+    t0 = time.perf_counter()
+    cfg = get_arch(KNN_ARCH)
+
+    def klog(msg: str) -> None:  # every line with the card's name and power limit
+        log(f"[knn] {msg} ({card})")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = LM.init_params(cfg, seed=SEED + 40, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    klog(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+        f"param_count() {cfg.param_count()} ({n_params} held, fp32 master weights)")
+    g = torch.Generator(dev).manual_seed(SEED + 41)
+    tokens = token_stream(g, KNN_SEQS + KNN_HELD_SEQS, KNN_SEQ_LEN, cfg.vocab)
+    (keys, vals), harvest_s = timed(lambda: knn_harvest(params, cfg, tokens))
+    s1 = KNN_SEQ_LEN - 1
+    n = KNN_SEQS * s1
+    pos = torch.arange(keys.shape[0], device=dev) % s1
+    held = keys[n:][pos[n:] >= KNN_MIN_POS][:KNN_HELD]
+    keys, vals = keys[:n], vals[:n]
+    sources = (torch.arange(KNN_SEQS, device=dev) * KNN_SOURCES // KNN_SEQS).repeat_interleave(s1)
+    flop = 2 * (cfg.param_count() - cfg.vocab * cfg.d_model) * tokens.numel()
+    klog(f"harvest {tokens.shape[0]} x {KNN_SEQ_LEN} tokens (bf16 activations): "
+        f"{harvest_s:.2f}s, {n} stored pairs + {held.shape[0]} held-out states, "
+        f"{flop / harvest_s / 1e12:.1f} TFLOP/s of the non-embedding matmuls")
+    if held.shape[0] != KNN_HELD or not bool(torch.isfinite(keys).all()):
+        raise AssertionError("the harvest gave non-finite or too few hidden states")
+
+    # the path's launches (the build, one filtered retrieval, the
+    # generation) and the checks' between them, counted apart
+    path, checks = {}, {}
+    ops.reset_launch_counts()
+
+    # the build and the dynamic index's construction, timed apart
+    build_s = [0.0]
+    real_build = grnnd_mod.build_graph
+
+    def build_timed(*a, **kw):
+        out, s = timed(lambda: real_build(*a, **kw))
+        build_s[0] += s
+        return out
+
+    grnnd_mod.build_graph = build_timed
+    try:
+        ds, total_s = timed(lambda: KNN.DynamicDatastore.build(
+            keys, vals, cfg.vocab, build_cfg=KNN.DEFAULT_BUILD_CFG, precision="int8",
+            sources=sources.to(torch.int32), n_sources=KNN_SOURCES, draws=Draws(SEED + 42, dev),
+            device=dev, k=KNN_K, ef=KNN_EF, visited="hashed"))
+    finally:
+        grnnd_mod.build_graph = real_build
+    knn_take(path)
+    idx = ds.index
+    del keys
+    keys = idx.x[:n]  # the fp32 tier holds the stored keys
+    klog(f"DynamicDatastore.build {KNN.DEFAULT_BUILD_CFG}: build {build_s[0]:.2f}s, "
+        f"construction (int8 re-base of {n * idx.r} edges) {total_s - build_s[0]:.2f}s, "
+        f"capacity {idx.capacity}, mean degree {float(idx.pool.degree()[:n].float().mean()):.2f}")
+
+    # the geometry of the states and the graph; recall of the held-out
+    # states against the brute-force truth and the distance excess, through
+    # the kernels, through their plain versions, and on a random graph
+    truth, gt_s = timed(lambda: brute_force_knn(keys, held, 10, device=dev))
+    d_true = ((held[:, None, :] - keys[truth.long()]) ** 2).sum(-1)
+    rq = torch.randint(0, n, (KNN_HELD, 10), generator=g, device=dev)
+    d_rand = float(((held - keys[rq[:, 0]]) ** 2).sum(-1).median())
+    cur = tokens[:, :-1].reshape(-1)
+    held_cur = cur[n:][pos[n:] >= KNN_MIN_POS][:KNN_HELD]
+    share = float((cur[:n][truth.long()] == held_cur[:, None]).float().mean())
+    smp = torch.randint(0, n, (KNN_HELD,), generator=g, device=dev)
+    rv = torch.randint(0, n, (KNN_HELD, 10), generator=g, device=dev)
+    smp_knn = brute_force_knn(keys, keys[smp], 11, device=dev)[:, 1:]
+    pool_rec = recall_at_k(idx.pool.ids[smp], smp_knn)
+    pool_exc = pool_excess(keys, smp, idx.pool.ids, smp_knn, rv)
+    rand_pools = torch.randint(0, n, (n, idx.r), generator=g, device=dev, dtype=torch.int32)
+    rand_pool_exc = pool_excess(keys, smp, rand_pools, smp_knn, rv)
+    klog(f"state geometry: every key's norm {float(keys[:4096].norm(dim=1).mean()):.2f}; median "
+         f"squared distance of a held-out state to its 1st / 10th true neighbor "
+         f"{float(d_true[:, 0].median()):.1f} / {float(d_true[:, 9].median()):.1f}, to a random "
+         f"stored key {d_rand:.1f}; {share:.4f} of the true 10-NN share the query's current "
+         f"token; the pools hold {pool_rec:.4f} of their vertices' true 10-NN, excess "
+         f"{pool_exc:.4f} (random pools {rand_pool_exc:.4f}); truth {gt_s:.2f}s")
+    recs, excs = {}, {}
+    for ef in KNN_RECALL_EFS:
+        res, s = timed(lambda ef=ef: idx.search(held, k=10, ef=ef, visited="hashed"))
+        ratio = float((res.dists[:, 9] / d_true[:, 9]).mean())
+        recs[ef] = recall_at_k(res.ids, truth)
+        excs[ef] = distance_excess(keys, held, res.ids, truth, rq)
+        klog(f"held-out search at ef {ef} (int8 + fp32 rescore, hashed): recall@10 "
+             f"{recs[ef]:.4f}, excess {excs[ef]:.4f}, found / true 10th distance {ratio:.4f}; "
+             f"{s:.2f}s")
+    with ops.backend("ref"):
+        res = idx.search(held, k=10, ef=KNN_EF, visited="hashed")
+    plain, plain_exc = recall_at_k(res.ids, truth), distance_excess(keys, held, res.ids, truth, rq)
+    res = search(keys, rand_pools, held, k=10, ef=KNN_EF, visited="hashed", device=dev)
+    rand_exc = distance_excess(keys, held, res.ids, truth, rq)
+    del rand_pools, res
+    klog(f"at ef {KNN_EF}, plain versions: recall@10 {plain:.4f}, excess {plain_exc:.4f} "
+         f"(kernels {recs[KNN_EF]:.4f}, {excs[KNN_EF]:.4f}); a random graph of degree {idx.r} "
+         f"searched through the kernels: excess {rand_exc:.4f}")
+    gap = KNN_EXCESS_GAP
+    if abs(plain_exc - excs[KNN_EF]) > gap or excs[KNN_EF] > rand_exc - KNN_CONTROL_GAPS * gap or (
+        pool_exc > rand_pool_exc - KNN_CONTROL_GAPS * gap
+    ):
+        raise AssertionError(f"the search's excess: kernels {excs[KNN_EF]:.4f}, plain versions "
+                             f"{plain_exc:.4f} (gap {gap}), a random graph {rand_exc:.4f}; the "
+                             f"pools' {pool_exc:.4f}, random pools {rand_pool_exc:.4f}")
+
+    # 2^18-pair builds through the kernels and the plain versions at each
+    # seed: the pools' excess, and the held-out search's over each graph
+    sub = keys[:KNN_FP32_N]
+    in_sub = smp < KNN_FP32_N
+    sub_smp, sub_rv, sub_rq = smp[in_sub], rv[in_sub] % KNN_FP32_N, rq % KNN_FP32_N
+    sub_knn = brute_force_knn(sub, sub[sub_smp], 11, device=dev)[:, 1:]
+    sub_truth = brute_force_knn(sub, held, 10, device=dev)
+    built = {}
+    for seed in KNN_BUILD_SEEDS:
+        for name in ("auto", "ref"):
+            with ops.backend(name):
+                sub_pool = build_graph(sub, KNN.DEFAULT_BUILD_CFG, draws=Draws(seed, dev),
+                                       device=dev)
+                res = search(sub, sub_pool.ids, held, k=10, ef=KNN_EF, visited="hashed",
+                             device=dev)
+            built[seed, name] = (
+                recall_at_k(sub_pool.ids[sub_smp], sub_knn),
+                pool_excess(sub, sub_smp, sub_pool.ids, sub_knn, sub_rv),
+                distance_excess(sub, held, res.ids, sub_truth, sub_rq),
+            )
+            klog(f"the first {KNN_FP32_N} pairs built and searched through the "
+                 f"{'kernels' if name == 'auto' else 'plain versions'}, seed {seed}: pools hold "
+                 "{:.4f} of the true 10-NN, excess {:.4f}; search excess {:.4f}".format(
+                     *built[seed, name]))
+    del sub_pool, sub_knn, res
+    spread = [max(abs(built[a, "ref"][i] - built[b, "ref"][i]) for a in KNN_BUILD_SEEDS
+                  for b in KNN_BUILD_SEEDS) for i in (1, 2)]
+    worst = [max(abs(built[s, "auto"][i] - built[s, "ref"][i]) for s in KNN_BUILD_SEEDS)
+             for i in (1, 2)]
+    klog(f"2^18-pair builds: kernels against plain versions at one seed differ by at most "
+         f"{worst[0]:.4f} (pools) / {worst[1]:.4f} (search) in excess; plain builds of "
+         f"seeds {KNN_BUILD_SEEDS} by {spread[0]:.4f} / {spread[1]:.4f} (gap {gap})")
+    if max(worst) > gap:
+        raise AssertionError(f"the kernels' builds differ from the plain versions' by {worst} in "
+                             f"excess, over {gap}")
+    knn_witness(keys, held, g, dev, klog, states_out)
+    for q in (KNN_PROMPTS, KNN_HELD):
+        _, s = timed(lambda q=q: ds.knn_log_probs(held[:q]))
+        klog(f"retrieval + vote at Q={q}: {s:.3f}s, {q / s:.0f} QPS")
+
+    # memorization: stored keys as queries; where the search retrieves the
+    # key's own row (distance 0), the vote must pick its stored token
+    memo = torch.nonzero(pos[:n] >= KNN_MIN_POS)[:, 0]
+    memo = memo[torch.randperm(memo.shape[0], generator=g, device=dev)[:KNN_MEMO]]
+    q, tgt = keys[memo], vals[memo].long()
+    ids = torch.cat([ds._search(q[lo : lo + 1024], k=KNN_K, ef=KNN_EF)[0]
+                     for lo in range(0, KNN_MEMO, 1024)])
+    own = (ids == memo[:, None]).any(1)
+    klp = knn_chunked(ds.knn_log_probs, q)
+    hit = klp.argmax(-1) == tgt
+    pure_q, fused_q = [], []
+    for lo in range(0, KNN_MEMO, 1024):
+        lm = LM.lm_logits(params, cfg, q[lo : lo + 1024])
+        t = tgt[lo : lo + 1024, None]
+        pure_q.append(-torch.log_softmax(lm, -1).gather(1, t)[:, 0])
+        fused_q.append(-KNN.fuse(lm, klp[lo : lo + 1024], KNN_LAM).gather(1, t)[:, 0])
+    pure_q, fused_q = torch.cat(pure_q), torch.cat(fused_q)
+    del klp
+    n_own = int(own.sum())
+    acc_own = float(hit[own].float().mean()) if n_own else 0.0
+    pure, fused = float(pure_q.mean()), float(fused_q.mean())
+    pure_own, fused_own = float(pure_q[own].mean()), float(fused_q[own].mean())
+    bound = -math.log1p(-KNN_LAM)
+    klog(f"memorization of {KNN_MEMO} stored pairs (positions >= {KNN_MIN_POS}): own row "
+         f"retrieved for {n_own}; vote argmax = stored token on {float(hit.float().mean()):.4f} "
+         f"of all, on {acc_own:.4f} of those (floor {KNN_OWN_FLOOR}); NLL pure LM {pure:.4f}, "
+         f"kNN-fused (lam {KNN_LAM}) {fused:.4f} (at most pure + {bound:.4f}); on the "
+         f"own-row queries {pure_own:.4f} -> {fused_own:.4f}")
+    if n_own == 0 or acc_own < KNN_OWN_FLOOR or fused > pure + bound + 1e-4 or not (
+        fused_own < pure_own
+    ):
+        raise AssertionError("the vote or the fusion broke on stored keys")
+
+    # the fp32 datastore on the first 2^18 pairs: bitwise the array-backed path
+    k32, v32 = keys[:KNN_FP32_N], vals[:KNN_FP32_N]
+    ds32, s32 = timed(lambda: KNN.DynamicDatastore.build(
+        k32, v32, cfg.vocab, precision="fp32", draws=Draws(SEED + 43, dev), device=dev,
+        k=KNN_K, ef=KNN_EF, visited="hashed"))
+    store = KNN.build_datastore(k32, v32, draws=Draws(SEED + 43, dev), device=dev)
+    if not torch.equal(store.graph, ds32.index.pool.ids[:KNN_FP32_N]):
+        raise AssertionError("two builds of the same pairs and draws gave different graphs")
+    got = ds32.knn_log_probs(held)
+    want = KNN.knn_logits(store, held, cfg.vocab, k=KNN_K, ef=KNN_EF, entry=ds32.index.entry(),
+                          valid=ds32.index.valid[:KNN_FP32_N], visited="hashed")
+    if not torch.equal(got, want):
+        raise AssertionError("the fp32 datastore differs from the array-backed path")
+    del ds32, store, got, want
+    klog(f"fp32 datastore of {KNN_FP32_N} pairs ({s32:.2f}s): knn_log_probs of "
+        f"{KNN_HELD} states bitwise knn_logits on the array-backed store (same entry, valid)")
+
+    # engine routing: the AnnEngine's batches bitwise the direct search
+    q = held[:KNN_ROUTED]
+    direct = ds.knn_log_probs(q)
+    engine = ds.attach_engine()
+    try:
+        routed, s = timed(lambda: ds.knn_log_probs(q))
+    finally:
+        ds._engine = None
+    if not torch.equal(routed, direct):
+        raise AssertionError("the engine-routed retrieval differs from the direct search")
+    st = engine.stats()
+    klog(f"attach_engine() retrieval of {KNN_ROUTED} queries bitwise the direct search: "
+        f"{s:.2f}s, p50 {st.p50_ms:.1f} ms, p99 {st.p99_ms:.1f} ms, {st.n_buckets} buckets")
+    del direct, routed
+
+    # a source-filtered retrieval (on the path): every vote from source 0's pairs
+    knn_take(checks)
+    klp0 = ds.knn_log_probs(held[:KNN_ROUTED], filter=torch.zeros((KNN_ROUTED,), dtype=torch.int32,
+                                                                   device=dev))
+    knn_take(path)
+    voted = torch.isfinite(klp0)
+    ids, _ = ds._search(held[:KNN_ROUTED], k=KNN_K, ef=KNN_EF,
+                        filter=torch.zeros((KNN_ROUTED,), dtype=torch.int32, device=dev))
+    live = ids[ids >= 0].long()
+    if not bool(voted.any(1).all()) or bool((sources[live] != 0).any()):
+        raise AssertionError("the source-0 filtered retrieval left its source or lost support")
+    del klp0, voted
+
+    # retrieval-fused generation, replayed on a twin from the same state
+    twin = knn_twin(ds)
+    prompts = token_stream(g, KNN_PROMPTS, KNN_PROMPT_LEN, cfg.vocab)
+    n0 = len(ds)
+    knn_take(checks)
+    toks, gen_s, ins_s = knn_generate(ds, params, cfg, prompts, dev)
+    knn_take(path)
+    grew = len(ds) - n0
+    if toks.shape != (KNN_PROMPTS, KNN_NEW) or grew != KNN_PROMPTS * KNN_NEW:
+        raise AssertionError(f"generation gave {tuple(toks.shape)}; the datastore grew {grew}")
+    twin_toks, twin_s, _ = knn_generate(twin, params, cfg, prompts, dev)
+    same = (
+        torch.equal(toks, twin_toks)
+        and torch.equal(ds.index.pool.ids, twin.index.pool.ids)
+        and torch.equal(ds.index.pool.dists, twin.index.pool.dists)
+        and torch.equal(ds.index.labels, twin.index.labels)
+        and torch.equal(ds.index.valid, twin.index.valid)
+        and torch.equal(ds.values, twin.values)
+    )
+    if not same:
+        raise AssertionError("the twin's generation or datastore differs")
+    del twin
+    plain_eng = ServeEngine(cfg, params, s_max=KNN_PROMPT_LEN + KNN_NEW, act_dtype=torch.bfloat16,
+                            device=dev)
+    _, plain_s = timed(lambda: plain_eng.generate({"tokens": prompts}, max_new_tokens=KNN_NEW))
+    new = KNN_PROMPTS * KNN_NEW
+    klog(f"generation {KNN_PROMPTS} x ({KNN_PROMPT_LEN} + {KNN_NEW}) greedy, bf16: with "
+        f"the hooks {gen_s:.2f}s, {new / gen_s:.0f} tokens/s (twin {twin_s:.2f}s); without "
+        f"{plain_s:.2f}s, {new / plain_s:.0f} tokens/s; {grew} pairs streamed in "
+        f"({n0} -> {len(ds)}), inserts {ins_s:.2f}s, {grew / ins_s:.0f} pairs/s; tokens, "
+        "pools, labels, validity and token table bitwise the twin's")
+    klog(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+    # where a step's time goes: the prefill, one decode step and one step's
+    # retrieval under the profiler (counted among the checks)
+    with torch.no_grad():
+        (logits, caches, plen, _), s = timed(lambda: LM.prefill(
+            params, cfg, {"tokens": prompts}, s_max=KNN_PROMPT_LEN + KNN_NEW,
+            act_dtype=torch.bfloat16, return_hidden=True))
+        klog(f"prefill of {KNN_PROMPTS} x {KNN_PROMPT_LEN} tokens: {s:.3f}s")
+        tok = logits.argmax(-1).to(torch.int32)
+        at = torch.full((KNN_PROMPTS,), plen, dtype=torch.int32, device=dev)
+        profiled(f"one decode step of {cfg.name}, {KNN_PROMPTS} rows, bf16",
+                 lambda: LM.decode_step(params, cfg, caches, tok, at, act_dtype=torch.bfloat16))
+        del caches, logits
+    profiled(f"one decode step's retrieval + vote, Q = {KNN_PROMPTS}",
+             lambda: ds.knn_log_probs(held[:KNN_PROMPTS]))
+
+    # every kernel call of one streaming insert and one decode step's
+    # retrieval (after it: the entry is recomputed) against its plain version
+    hs = held[: KNN_PROMPTS * KNN_INSERT_EVERY]
+    t1 = time.perf_counter()
+    with PlainCheck() as chk:
+        ds.add(hs, vals[: hs.shape[0]])
+        ds.knn_log_probs(held[:KNN_PROMPTS])
+    klog(f"one streaming insert of {hs.shape[0]} pairs and one decode step's retrieval "
+        f"(Q={KNN_PROMPTS}): every kernel call held against its plain version, max abs dist "
+        f"err {chk.err:.3g} ({time.perf_counter() - t1:.2f}s): {chk.summary(KNN_PLAIN)}")
+    knn_take(checks)
+    klog(f"launches of the checks, not the path: { {k: v for k, v in sorted(checks.items()) if v} }")
+    knn_rows(idx, held, rows)
+    path_counts("knn", path, KNN_KERNELS, rows)
+    klog(f"done in {time.perf_counter() - t0:.1f}s")
+
+
+def knn_rows(idx, held, rows) -> None:
+    """Phase 2's rows at the kNN-LM shapes (D = 1152), on the datastore's
+    N stored rows: B1 fp32 over its pool (C = N) and int8 at one streaming
+    insert's frontier, B3 int8 + valid and fp32 + valid at Q = 32 and
+    1,000, B6 int8 and fp32 over the re-base's N x 24 pairs, B4 at the
+    init's owner-distance block, B5 at the medoid and the truth."""
+    t0 = time.perf_counter()
+    keys = idx.x[: idx.size]
+    dev = keys.device
+    n, d = keys.shape
+    r = idx.r
+    g = torch.Generator(dev).manual_seed(SEED + 45)
+    measure = functools.partial(kernel_row, rows)
+    ids, dists = idx.pool.ids[:n], idx.pool.dists[:n]
+    data8, sc8, of8 = idx.store.data[:n], idx.store.scale, idx.store.offset
+    sdo = 2 * d * 4
+    p = KNN.DEFAULT_BUILD_CFG.pairs_per_vertex
+    si = torch.randint(0, r, (n, p), generator=g, device=dev, dtype=torch.int32)
+    sj = torch.randint(0, r, (n, p), generator=g, device=dev, dtype=torch.int32)
+
+    def rng_check(got, want, dists=dists, si=si, sj=sj):
+        err, ties = check_rng_round(got, want, dists, si, sj)
+        return err, f"; {ties} dst mismatches at near-ties"
+
+    measure(
+        "rng_round[knn]", "src/repro_torch/kernels/csrc/rng_round.cu",
+        "src/repro/kernels/rng_round.py:124",
+        lambda: rng_round(keys, ids, dists, si, sj),
+        lambda: ref.rng_round_ref(keys, ids, dists, si, sj),
+        rng_check, unique_rows(ids) * d * 4 + n * r * 9 + n * p * 20, 3 * n * p * d, None, 5,
+        launches_of="rng_round",
+    )
+    del si, sj
+    # one streaming insert's frontier: the batch and its seed neighbors
+    c1 = KNN_PROMPTS * KNN_INSERT_EVERY * (1 + idx.cfg.seed_k)
+    p1 = idx.cfg.pairs_per_vertex
+    fr = torch.randint(0, n, (c1,), generator=g, device=dev)
+    f_ids, f_dists = ids[fr].contiguous(), dists[fr].contiguous()
+    f_si = torch.randint(0, r, (c1, p1), generator=g, device=dev, dtype=torch.int32)
+    f_sj = torch.randint(0, r, (c1, p1), generator=g, device=dev, dtype=torch.int32)
+    measure(
+        "rng_round/int8[knn]", "src/repro_torch/kernels/csrc/rng_round.cu",
+        "src/repro/kernels/rng_round.py:124",
+        lambda: rng_round(data8, f_ids, f_dists, f_si, f_sj, sc8, of8),
+        lambda: ref.rng_round_ref(data8, f_ids, f_dists, f_si, f_sj, sc8, of8),
+        lambda got, want: rng_check(got, want, f_dists, f_si, f_sj),
+        unique_rows(f_ids) * d + sdo + c1 * r * 9 + c1 * p1 * 20, 3 * c1 * p1 * d + c1 * r * 2 * d,
+        None, 20, launches_of="rng_round/int8",
+    )
+
+    def expand_check(got, want):
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])):
+            raise AssertionError("search_expand ids / fresh differ at D = 1152")
+        ok = want[0] >= 0
+        return close(got[1][ok], want[1][ok], "search_expand dists at D = 1152"), ""
+
+    valid = idx.valid[:n]
+    h = default_visited_cap(KNN_EF)
+    for q in (KNN_PROMPTS, KNN_HELD):
+        queries = held[:q].contiguous()
+        nbrs = ids[torch.randint(0, n, (q,), generator=g, device=dev)].contiguous()
+        table = torch.full((q, h), -1, dtype=torch.int32, device=dev)
+        _table_insert(table, ids[torch.randint(0, n, (q,), generator=g, device=dev)])
+        live = int((nbrs >= 0).sum())
+        common = q * d * 4 + q * r * 13 + min(q * h, live * 8) * 4 + unique_rows(nbrs)
+        for name, data, sc, of, size, dq in (
+            ("search_expand/int8+valid", data8, sc8, of8, 1, 2 * d),
+            ("search_expand+valid", keys, None, None, 4, 0),
+        ):
+            measure(
+                f"{name}[knn,Q={q}]", "src/repro_torch/kernels/csrc/search_expand.cu",
+                "src/repro/kernels/search_expand.py:170",
+                lambda data=data, sc=sc, of=of, a=(queries, nbrs, table, valid): search_expand(
+                    data, a[0], a[1], a[2], a[3], sc, of),
+                lambda data=data, sc=sc, of=of, a=(queries, nbrs, table, valid): (
+                    ref.search_expand_ref(data, a[0], a[1], a[2], a[3], sc, of)),
+                expand_check, unique_rows(nbrs) * d * size + (sdo if sc is not None else 0) + common,
+                live * (3 * d + dq), None, 20, launches_of=name,
+            )
+    # the re-base's pairs: every pool edge of the N built rows
+    owners = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(r)
+    nj = ids.clamp_min(0).reshape(-1).contiguous()
+    m = owners.shape[0]
+    rows_m = unique_rows(torch.cat([owners, nj]))
+    chunk = max(1, (1 << 22) * 128 // d)
+    for name, data, sc, of, size, dq in (
+        ("gather_sqdist/int8", data8, sc8, of8, 1, 4 * d),
+        ("gather_sqdist", keys, None, None, 4, 0),
+    ):
+        gathered_ms = ((m + n) * d * size + m * 12) / PEAK_BYTES_PER_S * 1e3
+        measure(
+            f"{name}[knn]", "src/repro_torch/kernels/csrc/gather_l2.cu",
+            "src/repro/kernels/gather_l2.py:52",
+            lambda data=data, sc=sc, of=of: gather_sqdist(data, owners, nj, sc, of),
+            lambda data=data, sc=sc, of=of: ref.gather_sqdist_ref(data, owners, nj, sc, of),
+            lambda got, want, name=name, g_ms=gathered_ms: (
+                close(got, want, f"{name} at D = 1152"), f"; gathered-rows bound {g_ms:.3f} ms"),
+            rows_m * d * size + (sdo if sc is not None else 0) + m * 12, m * (3 * d + dq),
+            lambda data=data, sc=sc, of=of: gathered_sqdist(data, owners, nj, sc, of, chunk=chunk),
+            3, launches_of=name,
+        )
+    del owners, nj
+    # the init's owner-distance block (pools.OWNER_BLOCK vertices x s)
+    s = KNN.DEFAULT_BUILD_CFG.s
+    blk = min(n, 1 << 16)
+    xo = keys[:blk].repeat_interleave(s, 0)
+    xn = keys[ids[:blk, :s].clamp_min(0).reshape(-1).long()]
+    mb = xo.shape[0]
+    measure(
+        "rowwise_sqdist[knn]", "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        "src/repro/kernels/pairwise_l2.py:155",
+        lambda: rowwise_sqdist(xo, xn), lambda: ref.rowwise_sqdist_ref(xo, xn),
+        lambda got, want: (close(got, want, "rowwise_sqdist at D = 1152"), ""),
+        2 * mb * d * 4 + mb * 4, 3 * mb * d, lambda: ((xo - xn) ** 2).sum(-1), 10,
+        launches_of="rowwise_sqdist",
+    )
+    del xo, xn
+
+    def pairwise_check(got, want, xq, y):
+        scale = (xq * xq).sum(-1)[:, None] + (y * y).sum(-1)[None, :]
+        err = (got - want).abs()
+        if bool((err > PAIRWISE_REL * scale + 1e-6).any()):
+            raise AssertionError("pairwise_sqdist outside its tolerance at D = 1152")
+        return float(err.max()), ""
+
+    y8 = ref.dequant_rows(data8, sc8, of8)
+    cen = y8.mean(0, keepdim=True)
+    measure(
+        "pairwise_sqdist/int8[knn,M=1]", "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        "src/repro/kernels/pairwise_l2.py:80",
+        lambda: pairwise_sqdist(cen, data8, None, None, sc8, of8),
+        lambda: ref.pairwise_sqdist_ref(cen, data8, None, None, sc8, of8),
+        lambda got, want: pairwise_check(got, want, cen, y8),
+        d * 4 + n * d + sdo + n * 4, 2 * n * d + n * 2 * d,
+        lambda: torch.cdist(cen, y8).square(), 10, launches_of="pairwise_sqdist/int8",
+    )
+    del y8
+    hq = held[:KNN_HELD].contiguous()
+    measure(
+        "pairwise_sqdist[knn,truth]", "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        "src/repro/kernels/pairwise_l2.py:80",
+        lambda: pairwise_sqdist(hq, keys), lambda: ref.pairwise_sqdist_ref(hq, keys),
+        lambda got, want: pairwise_check(got, want, hq, keys),
+        (KNN_HELD + n) * d * 4 + KNN_HELD * n * 4, 2 * KNN_HELD * n * d,
+        lambda: torch.cdist(hq, keys).square(), 3, launches_of="pairwise_sqdist",
+    )
+    torch.cuda.empty_cache()
+    log(f"[knn] kernel rows at D = {d} done in {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: where the time goes (after the main path's counts are read)
 # ---------------------------------------------------------------------------
 
@@ -2126,6 +2778,10 @@ def phase_profile(x, queries, pool, truth, cfg, idx) -> None:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description="Every phase on one card; the last line is the result.")
+    ap.add_argument("--knn-states", metavar="PATH",
+                    help="save phase 4i's witness states (npz) for tests/_knn_witness.py")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a card")
     t0 = time.perf_counter()
@@ -2157,6 +2813,9 @@ def main() -> None:
     phase_profile(x, queries, pool, truth, cfg, idx)
     torch.cuda.empty_cache()
     phase_serving(x, queries, pool, truth, filtered, idx, card)
+    del x, queries, pool, truth, results, filtered, idx, parity
+    torch.cuda.empty_cache()
+    phase_knn(card, rows, dev, args.knn_states)
     log(f"[total] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     kind = torch.cuda.get_device_name(0)

@@ -18,6 +18,8 @@ from repro_torch.core.labels import LabelStore
 from repro_torch.core.layout import OptimizedIndex
 from repro_torch.core.pools import Pool
 from repro_torch.core.vecstore import HostTier, VectorStore
+from repro_torch.models import transformer as T
+from repro_torch.retrieval.knn_lm import DynamicDatastore, KNNDatastore
 from repro_torch.serve.ann_engine import DynamicWorker, ShardedWorker, StaticWorker
 
 
@@ -222,18 +224,12 @@ def static_worker_from_jax(worker, device="cuda") -> StaticWorker:
     )
 
 
-def dynamic_worker_from_jax(
-    worker, *, cfg: DynamicConfig = DynamicConfig(), draws=None, device="cuda"
-) -> DynamicWorker:
-    """A reference `DynamicWorker` as the port's: its index's state carried
-    across by `dynamic_from_jax` (with `cfg`, the reference's config as the
-    port's, and `draws` for the rounds of later inserts), its visited-set
-    choice as it is."""
-    idx = worker.index
+def _dynamic_index_from_jax(idx, cfg: DynamicConfig, draws, device) -> DynamicIndex:
+    """A reference `DynamicIndex` object's state as the port's index."""
     store = None
     if idx.store is not None:
         store = tuple(None if a is None else np.asarray(a) for a in idx.store)
-    port = dynamic_from_jax(
+    return dynamic_from_jax(
         x=np.asarray(idx.x),
         store=store,
         pool_ids=np.asarray(idx.pool.ids),
@@ -251,6 +247,16 @@ def dynamic_worker_from_jax(
         draws=draws,
         device=device,
     )
+
+
+def dynamic_worker_from_jax(
+    worker, *, cfg: DynamicConfig = DynamicConfig(), draws=None, device="cuda"
+) -> DynamicWorker:
+    """A reference `DynamicWorker` as the port's: its index's state carried
+    across by `dynamic_from_jax` (with `cfg`, the reference's config as the
+    port's, and `draws` for the rounds of later inserts), its visited-set
+    choice as it is."""
+    port = _dynamic_index_from_jax(worker.index, cfg, draws, device)
     return DynamicWorker(port, visited=worker.visited, visited_cap=worker.visited_cap)
 
 
@@ -263,4 +269,57 @@ def sharded_worker_from_jax(worker, device="cuda") -> ShardedWorker:
         corpus_sharded_from_jax(worker.index, device=device),
         visited=worker.visited,
         visited_cap=worker.visited_cap,
+    )
+
+
+def lm_params_from_jax(params, cfg, device="cuda") -> T.LMParams:
+    """The reference's LM parameter tree (`models/transformer.init_params`;
+    leaves as numpy arrays or anything `np.asarray` takes) as the port's
+    `LMParams` on `device`. Each segment's leading repeat axis is unstacked:
+    repeat `rep` of position `pos` is layer offset + rep * unit + pos
+    (`transformer.segment_layers`). fp32 leaves stay fp32, bf16 leaves are
+    carried bit for bit."""
+    T.check_supported(cfg)
+    dev = _device.resolve(device)
+
+    def tree(p, rep):
+        if isinstance(p, dict):
+            return {name: tree(v, rep) for name, v in p.items()}
+        return _stored(np.asarray(p)[rep], dev)
+
+    layers: list = [None] * cfg.n_layers
+    for seg, seg_map in zip(params["segments"], T.segment_layers(cfg)):
+        for pos_params, reps in zip(seg, seg_map):
+            for rep, layer in enumerate(reps):
+                layers[layer] = tree(pos_params, rep)
+    lm_head = params.get("lm_head")
+    return T.LMParams(
+        _stored(params["embed"], dev),
+        _stored(params["final_norm"], dev),
+        layers,
+        None if lm_head is None else _stored(lm_head, dev),
+    )
+
+
+def knn_datastore_from_jax(store, device="cuda") -> KNNDatastore:
+    """The reference's array-backed `KNNDatastore` (keys, values, graph) as
+    the port's, on `device`."""
+    dev = _device.resolve(device)
+    return KNNDatastore(
+        keys=_device.put(store.keys, torch.float32, dev),
+        values=_device.put(store.values, torch.int32, dev),
+        graph=_device.put(store.graph, torch.int32, dev),
+    )
+
+
+def dynamic_datastore_from_jax(
+    ds, *, cfg: DynamicConfig = DynamicConfig(), draws=None, device="cuda", **knn_kw
+) -> DynamicDatastore:
+    """The reference's `DynamicDatastore` as the port's: its index carried
+    across by `dynamic_from_jax` (`cfg` the reference's config as the
+    port's, `draws` for later inserts), its label-indexed token table, vocab
+    and k / ef / tau; `knn_kw` adds the port's own knobs (`visited=`)."""
+    index = _dynamic_index_from_jax(ds.index, cfg, draws, device)
+    return DynamicDatastore(
+        index, np.asarray(ds._values), ds.vocab, k=ds.k, ef=ds.ef, tau=ds.tau, **knn_kw
     )

@@ -42,7 +42,7 @@ from repro_torch.core.pools import (
     insert_requests,
     merge_into,
 )
-from repro_torch.core.recall import brute_force_knn, recall_at_k
+from repro_torch.core.recall import brute_force_knn, distance_excess, pool_excess, recall_at_k
 from repro_torch.core.search import (
     SearchResult,
     default_visited_cap,
@@ -101,6 +101,8 @@ __all__ = [
     "default_visited_cap",
     "overfetch_ef",
     "brute_force_knn",
+    "distance_excess",
+    "pool_excess",
     "recall_at_k",
     "PLACEMENTS",
     "PRECISIONS",

@@ -1,4 +1,4 @@
-"""Synthetic vector datasets drawn from a `torch.Generator`.
+"""Synthetic vector datasets and LM token streams drawn from a `torch.Generator`.
 
 The presets model the paper's benchmark families, as in the JAX package's
 `data/synthetic.py`:
@@ -12,6 +12,8 @@ graph ANN interesting. The data lands on the generator's device, so a
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -53,3 +55,12 @@ DATASET_PRESETS = {
 def make_preset(gen: torch.Generator, name: str, n: int) -> torch.Tensor:
     d, ncl, norm = DATASET_PRESETS[name]
     return vector_dataset(gen, n, d, n_clusters=ncl, normalize=norm)
+
+
+def token_stream(gen: torch.Generator, batch: int, seq: int, vocab: int) -> torch.Tensor:
+    """Zipf-ish synthetic (batch, seq) int32 token ids: rank
+    floor(vocab^u) - 1 for u uniform in [1e-6, 1), as the JAX package draws
+    them from its key."""
+    u = torch.rand((batch, seq), generator=gen, device=gen.device) * (1.0 - 1e-6) + 1e-6
+    ranks = torch.floor(torch.exp(u * math.log(float(vocab)))) - 1.0
+    return ranks.clamp(0, vocab - 1).to(torch.int32)

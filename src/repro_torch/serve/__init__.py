@@ -1,4 +1,5 @@
-"""Serving: the continuous-batching ANN engine and its workers."""
+"""Serving: the continuous-batching ANN engine and its workers, and the LM
+engine (prefill + decode with the retrieval hooks)."""
 
 from repro_torch.serve.ann_engine import (
     AnnEngine,
@@ -18,6 +19,7 @@ from repro_torch.serve.ann_engine import (
     replay,
     synth_trace,
 )
+from repro_torch.serve.engine import ServeEngine
 
 __all__ = [
     "AnnEngine",
@@ -28,6 +30,7 @@ __all__ = [
     "MutationRequest",
     "QueryRequest",
     "QueryResult",
+    "ServeEngine",
     "ShardedWorker",
     "StaticWorker",
     "TraceEvent",

@@ -26,7 +26,11 @@ candidates from the other shards); search_expand as one shard of the
 corpus-sharded search runs it (3/4 of the slots masked, a 1-slot table),
 and that search bitwise the replicated one on the card; and the
 visited insert at H = 1, 3, 8, 512, 4096 and R = 1, 20, 48, bitwise the column
-loop. Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
+loop; and at gemma3-1b's width D = 1152 (the kNN-LM datastore's rows): B1
+at R = P = 24 and 48 and raising past its shared memory at R = 64, B3 at Q = 32 and
+1,000 with the mask, B6 on the re-base's runs, each at every storage rung,
+the deterministic vote, and the fp32 datastore bitwise the array-backed
+path and the engine-routed retrieval. Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
 summation order; the dequant itself is bitwise the plain version's);
 pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition cancellation);
 topr_merge, the visited tables and every integer output exactly, except rng_round's hit test
@@ -126,6 +130,14 @@ def merge_cases(w: int, seed: int = 0):
     return ids, dists
 
 
+# the kNN-LM datastore's shapes at gemma3-1b's D = 1152: B1 at R = P = 24
+# (two blocks an SM at fp32) and 48 (221 KB, one), B3 at the retrieval's
+# Q = 32 and 1,000 with H = 256 (fp32 rows past the 32 KB async budget,
+# int8 rows through it); B6's re-base runs are among REBASE_EDGES (fp32:
+# the per-pair kernel past 8 quads a lane)
+KNN_ROUNDS = [(3000, 1152, 2000, 24, 24), (3000, 1152, 2000, 48, 48)]
+KNN_EXPANDS = [(20_000, 1152, 32, 24, 256), (20_000, 1152, 1000, 24, 256)]
+
 # edges of the 128x128 tiles and 32-deep K-slabs (M, N off the tile, D off
 # the slab or off 4) and of the row-streaming kernel for M <= 4
 PAIRWISE_EDGES = [(16, 1000, 128), (17, 300, 128), (129, 257, 33), (128, 128, 16),
@@ -197,7 +209,7 @@ def test_topr_merge_kernel_adversarial_rows(dev, w, wider):
 
 @pytest.mark.parametrize("precision", RUNGS)
 @pytest.mark.parametrize("n,d,c,r,p", [(6000, 128, 5000, 48, 48), (900, 33, 800, 12, 16),
-                                       (1200, 960, 1000, 48, 48)])
+                                       (1200, 960, 1000, 48, 48)] + KNN_ROUNDS)
 def test_rng_round_kernel_storage_and_row_widths(dev, precision, n, d, c, r, p):
     g = torch.Generator(dev).manual_seed(n + d)
     data, scale, offset = _store(synthetic.vector_dataset(g, n, d), precision)
@@ -302,7 +314,8 @@ def test_gather_sqdist_kernel(dev, precision, n, d, m):
 # straddle the 4-pair batches, and every case's runs straddle the groups'
 # ranges; N = 1 clamps every index to row 0
 REBASE_EDGES = [(3000, 128, 48), (1001, 33, 48), (500, 960, 48), (5003, 128, 7),
-                (2000, 64, 48), (70_001, 16, 3), (300, 1040, 5), (1, 128, 5), (1, 33, 7)]
+                (2000, 64, 48), (70_001, 16, 3), (300, 1040, 5), (1, 128, 5), (1, 33, 7),
+                (2001, 1152, 24)]
 
 
 @pytest.mark.parametrize("precision", RUNGS)
@@ -434,7 +447,7 @@ def test_rng_round_kernel_quantized(dev, precision, n, d, c, r, p):
 @pytest.mark.parametrize("precision", RUNGS)
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize(
-    "n,d,q,r,h", [(20_011, 128, 500, 48, 512), (901, 33, 64, 16, 1)] + EXPAND_EDGES
+    "n,d,q,r,h", [(20_011, 128, 500, 48, 512), (901, 33, 64, 16, 1)] + EXPAND_EDGES + KNN_EXPANDS
 )
 def test_search_expand_kernel_variants(dev, precision, masked, n, d, q, r, h):
     g = torch.Generator(dev).manual_seed(n + q)
@@ -710,3 +723,60 @@ def test_dynamic_engine_on_the_card_matches_twin_index(dev):
     assert lo == 96 and inserted == 500
     assert torch.equal(idx.pool.ids, twin.pool.ids) and torch.equal(idx.pool.dists, twin.pool.dists)
     assert torch.equal(idx.labels, twin.labels) and torch.equal(idx.valid, twin.valid)
+
+
+KNN_D = 1152  # gemma3-1b's hidden width: the kNN-LM datastore's rows
+
+
+def test_rng_round_kernel_raises_past_its_shared_memory(dev):
+    """64 fp32 rows of 1152 (295 KB) do not fit a block: the wrapper
+    raises, nothing falls back."""
+    x = torch.randn((100, KNN_D), device=dev)
+    ids = torch.zeros((10, 64), dtype=torch.int32, device=dev)
+    si = torch.zeros((10, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        rng_round(x, ids, torch.zeros((10, 64), device=dev), si, si)
+
+
+def test_knn_vote_is_deterministic_on_the_card(dev):
+    """Rows full of repeated tokens at vocab 262,144: the vote is bitwise
+    the same in every call (no float atomics), and within fp32 rounding of
+    the CPU's."""
+    from repro_torch.retrieval import knn_lm
+
+    g = torch.Generator(dev).manual_seed(11)
+    q, k, vocab = 512, 8, 262_144
+    ids = torch.randint(-1, 1000, (q, k), generator=g, device=dev)
+    dists = torch.rand((q, k), generator=g, device=dev) * 40
+    toks = torch.randint(0, 3, (q, k), generator=g, device=dev, dtype=torch.int32)
+    first = knn_lm.vote_log_probs(ids, dists, toks, vocab)
+    for _ in range(5):
+        assert torch.equal(knn_lm.vote_log_probs(ids, dists, toks, vocab), first)
+    cpu = knn_lm.vote_log_probs(ids.cpu(), dists.cpu(), toks.cpu(), vocab)
+    assert torch.equal(torch.isneginf(first).cpu(), torch.isneginf(cpu))
+    fin = torch.isfinite(cpu)
+    torch.testing.assert_close(first.cpu()[fin], cpu[fin], rtol=1e-5, atol=1e-6)
+
+
+def test_fp32_knn_datastore_on_the_card_is_the_array_path(dev):
+    """At D = 1152: the fp32 `DynamicDatastore`'s retrieval bitwise
+    `knn_logits` on the array-backed store pinned to the same entry and
+    validity view, and the engine-routed retrieval bitwise the direct one."""
+    from repro_torch.retrieval import knn_lm
+
+    g = torch.Generator(dev).manual_seed(12)
+    n, vocab = 4000, 262_144
+    x = synthetic.vector_dataset(g, n, KNN_D)
+    toks = torch.randint(0, vocab, (n,), generator=g, device=dev, dtype=torch.int32)
+    q = x[:300] + 0.05 * torch.randn((300, KNN_D), generator=g, device=dev)
+    for visited in ("dense", "hashed"):
+        ds = knn_lm.DynamicDatastore.build(x, toks, vocab, precision="fp32", draws=Draws(3, dev),
+                                           device=dev, visited=visited)
+        store = knn_lm.build_datastore(x, toks, draws=Draws(3, dev), device=dev)
+        assert torch.equal(store.graph, ds.index.pool.ids[:n])
+        got = ds.knn_log_probs(q)
+        want = knn_lm.knn_logits(store, q, vocab, entry=ds.index.entry(),
+                                 valid=ds.index.valid[:n], visited=visited)
+        assert torch.equal(got, want)
+        ds.attach_engine()
+        assert torch.equal(ds.knn_log_probs(q), got)

@@ -9,9 +9,10 @@
   * entry points default to the card and raise without one (the build in
     every order, the corpus-sharded index, build and search, the
     distributed search and build, before any process group is asked for,
-    the serving engine's static worker and the serving CLI);
-  * the launch CLI and `examples/quickstart_torch.py` run end to end on the
-    CPU when asked to.
+    the serving engine's static worker and the serving CLI, the LM's cache,
+    the parameter converter and `ServeEngine`, the kNN-LM datastores);
+  * the launch CLI, `examples/quickstart_torch.py` and
+    `examples/knn_lm_torch.py` run end to end on the CPU when asked to.
 """
 
 import importlib.util
@@ -43,8 +44,11 @@ from repro_torch.core import (
     sharded_build_graph,
     sharded_search,
 )
+from repro_torch.configs import get_arch, reduced
 from repro_torch.launch import build_index, serve
-from repro_torch.serve import StaticWorker
+from repro_torch.models import transformer as T
+from repro_torch.retrieval import knn_lm
+from repro_torch.serve import ServeEngine, StaticWorker
 from test_torch_grnnd import jax_draws
 
 # the suite runs in parallel workers: one intra-op thread each keeps torch
@@ -96,13 +100,20 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 35  # every module was imported
+    assert int(out.stdout.split()[0]) >= 53  # every module was imported
     for mod in (
         "repro_torch.core.corpus_shard",
         "repro_torch.core.distributed",
         "repro_torch.serve",
         "repro_torch.serve.ann_engine",
         "repro_torch.launch.serve",
+        "repro_torch.configs.gemma3_1b",
+        "repro_torch.models.layers",
+        "repro_torch.models.attention",
+        "repro_torch.models.transformer",
+        "repro_torch.serve.engine",
+        "repro_torch.retrieval",
+        "repro_torch.retrieval.knn_lm",
     ):
         assert mod in out.stdout.split()
 
@@ -113,6 +124,8 @@ def test_entry_points_default_to_the_card():
     x = np.zeros((20, 4), np.float32)
     ids = np.zeros((20, 2), np.int32)
     cfg = GRNNDConfig(s=2, r=2, t1=1, t2=1, pairs_per_vertex=2)
+    lm_cfg = reduced(get_arch("gemma3-1b"))
+    lm_params = T.init_params(lm_cfg, device="cpu")
     calls = [
         lambda: build_graph(x, cfg),
         lambda: build_graph(x, cfg._replace(order="ascending")),
@@ -129,6 +142,13 @@ def test_entry_points_default_to_the_card():
         lambda: StaticWorker(x, ids),
         lambda: serve.main(["--index", "unused.npz"]),
         lambda: serve.main(["--index", "unused.npz", "--engine"]),
+        lambda: T.init_params(lm_cfg),
+        lambda: T.make_cache(lm_cfg, 1, 8),
+        lambda: convert.lm_params_from_jax({}, lm_cfg),
+        lambda: ServeEngine(lm_cfg, lm_params, s_max=8),
+        lambda: knn_lm.build_datastore(x, ids[:, 0]),
+        lambda: knn_lm.DynamicDatastore.build(x, ids[:, 0], 8),
+        lambda: knn_lm.DynamicDatastore.empty(4, 8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -151,3 +171,14 @@ def test_quickstart_torch_on_the_cpu():
     spec.loader.exec_module(mod)
     stats = mod.main(["--device", "cpu", "--n", "2000"])
     assert stats["recall_at_10"] >= 0.8 and stats["degree"] > 0
+
+
+def test_knn_lm_torch_example_on_the_cpu():
+    spec = importlib.util.spec_from_file_location(
+        "knn_lm_torch", SRC.parent / "examples" / "knn_lm_torch.py"
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    stats = mod.main(["--device", "cpu", "--new-tokens", "8"])
+    assert stats["pairs"] == 32 * 63 and stats["grew"] == 4 * 8
+    assert stats["fused_nll"] < stats["pure_nll"] and stats["filtered_support"] == 1.0
