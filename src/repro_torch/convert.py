@@ -277,27 +277,35 @@ def lm_params_from_jax(params, cfg, device="cuda") -> T.LMParams:
     leaves as numpy arrays or anything `np.asarray` takes) as the port's
     `LMParams` on `device`. Each segment's leading repeat axis is unstacked:
     repeat `rep` of position `pos` is layer offset + rep * unit + pos
-    (`transformer.segment_layers`). fp32 leaves stay fp32, bf16 leaves are
-    carried bit for bit."""
-    T.check_supported(cfg)
+    (`transformer.segment_layers`); a `shared_attn` position's entry is
+    empty. The top-level trees (`shared_attn`, which has no repeat axis,
+    `vision_proj`, the codebook tables) are carried as they are. fp32
+    leaves stay fp32, bf16 leaves are carried bit for bit."""
     dev = _device.resolve(device)
 
-    def tree(p, rep):
+    def tree(p, rep=None):
         if isinstance(p, dict):
             return {name: tree(v, rep) for name, v in p.items()}
-        return _stored(np.asarray(p)[rep], dev)
+        a = np.asarray(p)
+        return _stored(a if rep is None else a[rep], dev)
+
+    def top(name):
+        return None if params.get(name) is None else tree(params[name])
 
     layers: list = [None] * cfg.n_layers
     for seg, seg_map in zip(params["segments"], T.segment_layers(cfg)):
         for pos_params, reps in zip(seg, seg_map):
             for rep, layer in enumerate(reps):
                 layers[layer] = tree(pos_params, rep)
-    lm_head = params.get("lm_head")
     return T.LMParams(
-        _stored(params["embed"], dev),
-        _stored(params["final_norm"], dev),
+        top("embed"),
+        tree(params["final_norm"]),
         layers,
-        None if lm_head is None else _stored(lm_head, dev),
+        top("lm_head"),
+        shared_attn=top("shared_attn"),
+        codebook_embed=top("codebook_embed"),
+        codebook_head=top("codebook_head"),
+        vision_proj=top("vision_proj"),
     )
 
 

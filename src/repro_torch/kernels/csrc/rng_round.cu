@@ -36,6 +36,16 @@
 // was not kept (PERF.md). A stored row whose bytes are not a multiple of 16
 // (or an unaligned base) is copied plainly by warp 0 in the same place of
 // the pipeline.
+//
+// Direct reads: where a vertex's R stored rows do not fit in shared memory
+// (R = 24 fp32 rows past D ~ 2,400: a kNN-LM datastore over a 3,584- or
+// 4,096-wide model's states), the DIRECT instance stages no rows. The 8
+// lanes of a pair's group read its two rows from device memory (through
+// L2), quad for quad as the staged path reads them from shared memory, with
+// the same summation and shuffle order, so dij is bitwise the staged
+// path's. The index ring, the result stage and the kill flags stay in
+// shared memory. No copy is overlapped with compute here: each group waits
+// on its own loads.
 #include "common.cuh"
 
 namespace {
@@ -93,9 +103,10 @@ struct Layout {
   size_t total;
 };
 
-__host__ __device__ inline Layout layout(int r, int p, int d, int tsize, bool q) {
+__host__ __device__ inline Layout layout(int r, int p, int d, int tsize, bool q, bool direct) {
   Layout l;
-  const size_t rbuf = align16((size_t)r * d * tsize);  // the row buffer: R stored rows
+  // the row buffer: R stored rows (none on the direct path)
+  const size_t rbuf = direct ? 0 : align16((size_t)r * d * tsize);
   const int ss = (3 * p + r + 3) & ~3;
   l.rs = (2 * r + 2 * p + 3) & ~3;
   const size_t sc = q ? align16((size_t)2 * d * 4) : 0;
@@ -107,11 +118,15 @@ __host__ __device__ inline Layout layout(int r, int p, int d, int tsize, bool q)
   return l;
 }
 
-// Quad c of a stored row in shared memory, dequantized with the shared
-// scale / offset (bitwise common.cuh::dequant_quad).
+// Quad c of a stored row, in shared memory or (direct path) device memory,
+// dequantized with the shared scale / offset (bitwise
+// common.cuh::dequant_quad). Without `vec` (a row base not aligned to a
+// quad) the four elements are loaded one by one: the same values.
 template <bool Q, typename T>
-__device__ __forceinline__ float4 smem_quad(const T* row, const float* sc, const float* of, int c) {
-  float4 v = load_quad(row + 4 * c);
+__device__ __forceinline__ float4 row_quad(const T* row, const float* sc, const float* of, int c,
+                                           bool vec) {
+  const T* e = row + 4 * c;
+  float4 v = vec ? load_quad(e) : make_float4(widen(e[0]), widen(e[1]), widen(e[2]), widen(e[3]));
   if constexpr (Q) {
     const float4 s = reinterpret_cast<const float4*>(sc)[c];
     const float4 o = reinterpret_cast<const float4*>(of)[c];
@@ -121,7 +136,7 @@ __device__ __forceinline__ float4 smem_quad(const T* row, const float* sc, const
   return v;
 }
 
-// Squared distance of two stored rows in shared memory over a group of 8
+// Squared distance of two stored rows over a group of 8
 // lanes (`sub` = lane in group), bitwise common.cuh::warp_row_sqdist over a
 // whole warp: lane sub holds that function's lanes sub, sub + 8, sub + 16
 // and sub + 24 (each summing its quads, or elements, in the same order),
@@ -129,13 +144,14 @@ __device__ __forceinline__ float4 smem_quad(const T* row, const float* sc, const
 // finishes with the xor-4, -2 and -1 steps.
 template <bool Q, typename T>
 __device__ __forceinline__ float group_sqdist(const T* a, const T* b, int d, const float* sc,
-                                              const float* of, int sub) {
+                                              const float* of, int sub, bool vec) {
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   if (d % 4 == 0) {
 #pragma unroll
     for (int m = 0; m < 4; ++m)
       for (int c = sub + 8 * m; c < d / 4; c += 32)
-        acc[m] = quad_sqdist(smem_quad<Q>(a, sc, of, c), smem_quad<Q>(b, sc, of, c), acc[m]);
+        acc[m] = quad_sqdist(row_quad<Q>(a, sc, of, c, vec), row_quad<Q>(b, sc, of, c, vec),
+                             acc[m]);
   } else {
 #pragma unroll
     for (int m = 0; m < 4; ++m)
@@ -151,15 +167,18 @@ __device__ __forceinline__ float group_sqdist(const T* a, const T* b, int d, con
   return v;
 }
 
-template <typename T, bool Q>
+// DIRECT: the rows are read from device memory (`bulk_rows` then says
+// whether they can be read as quads), not staged.
+template <typename T, bool Q, bool DIRECT>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
     rng_round_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                      const float* __restrict__ offset, int n, int d, const int* __restrict__ ids,
                      const float* __restrict__ dists, const int* __restrict__ si,
-                     const int* __restrict__ sj, long long c, int r, int p, bool bulk_rows, bool bulk_idx, int* __restrict__ dst,
-                     int* __restrict__ src, float* __restrict__ dij, uint8_t* __restrict__ kill) {
+                     const int* __restrict__ sj, long long c, int r, int p, bool bulk_rows,
+                     bool bulk_idx, int* __restrict__ dst, int* __restrict__ src,
+                     float* __restrict__ dij, uint8_t* __restrict__ kill) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout(r, p, d, (int)sizeof(T), Q);
+  const Layout L = layout(r, p, d, (int)sizeof(T), Q, DIRECT);
   const int rb = d * (int)sizeof(T);
   unsigned char* rows_raw = smem;
   int* ring = reinterpret_cast<int*>(smem + L.ring);
@@ -175,6 +194,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
   const int grp = lane >> 3, sub = lane & 7;
   const int cv = (int)c, G = gridDim.x;  // C < 2^31: vertex ids are int32
   auto slot = [&](int s) { return min(max(s, 0), r - 1); };
+  auto row_id = [&](int id) { return (size_t)min(max(id, 0), n - 1); };
 
   auto vert = [&](long long t) -> int {
     return t < cv ? (int)t : -1;
@@ -213,7 +233,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
     if (!bulk_rows) {
       T* rows = reinterpret_cast<T*>(rows_raw);
       for (int u = lane; u < r * d; u += 32)
-        rows[u] = x[(size_t)min(max(s_ids[u / d], 0), n - 1) * d + u % d];
+        rows[u] = x[row_id(s_ids[u / d]) * d + u % d];
     } else {
       for (int s0 = 0; s0 < r; s0 += 32) {
         unsigned bits = 0;
@@ -226,7 +246,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         __syncwarp();
         if ((bits >> lane) & 1u) {
           const int s = s0 + lane;
-          const size_t id = (size_t)min(max(s_ids[s], 0), n - 1);
+          const size_t id = row_id(s_ids[s]);
           bulk_copy(rows_raw + (size_t)s * rb, reinterpret_cast<const unsigned char*>(x) + id * rb,
                     rb, row_bar);
         }
@@ -235,8 +255,9 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
     __syncwarp();
     if (lane == 0) mbar_arrive_tx(row_bar, 0);
   };
-  // the sampled pairs of ring slot k over the row buffer -> the result
-  // stage: a group of 8 lanes per pair, four pairs a warp at once
+  // the sampled pairs of ring slot k over the row buffer (or, DIRECT, over
+  // the rows in device memory) -> the result stage: a group of 8 lanes per
+  // pair, four pairs a warp at once
   auto compute = [&](int k) {
     const int* s_ids = ring + k * L.rs;
     const float* s_dists = reinterpret_cast<const float*>(s_ids + r);
@@ -247,8 +268,13 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
       const int q = base + grp;
       const bool ok = q < p;
       const int a = ok ? slot(s_si[q]) : 0, bq = ok ? slot(s_sj[q]) : 0;
-      const float dd =
-          group_sqdist<Q>(rows + (size_t)a * d, rows + (size_t)bq * d, d, s_scale, s_off, sub);
+      float dd;
+      if constexpr (DIRECT)
+        dd = group_sqdist<Q>(x + row_id(s_ids[a]) * d, x + row_id(s_ids[bq]) * d, d, s_scale,
+                             s_off, sub, bulk_rows);
+      else
+        dd = group_sqdist<Q>(rows + (size_t)a * d, rows + (size_t)bq * d, d, s_scale, s_off, sub,
+                             true);
       if (ok && sub == 0) {
         const int ni = s_ids[a], nj = s_ids[bq];
         const float dvi = s_dists[a], dvj = s_dists[bq];
@@ -301,11 +327,11 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
     __syncthreads();  // the row buffer and the index slot of step i + 1 are free
     if (prev >= 0) drain(prev);
     if (warp == 0) {
-      issue_rows(i & 1);
+      if constexpr (!DIRECT) issue_rows(i & 1);
       if (next >= 0) issue_idx((i + 1) & 1, next);
     }
     const int after = vert((long long)t + 2 * G);
-    mbar_wait(row_bar, i & 1);
+    if constexpr (!DIRECT) mbar_wait(row_bar, i & 1);
     __syncthreads();  // plain copies published, the stage drained
     compute(i & 1);
     prev = cur;
@@ -316,13 +342,13 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
   drain(prev);
 }
 
-template <typename T, bool Q>
+template <typename T, bool Q, bool DIRECT>
 cudaError_t launch_q(const T* x, const float* scale, const float* offset, int n, int d,
                      const int* ids, const float* dists, const int* si, const int* sj,
                      long long c, int r, int p, int* dst, int* src, float* dij, uint8_t* kill,
                      cudaStream_t stream) {
-  auto kernel = rng_round_kernel<T, Q>;
-  const size_t smem = layout(r, p, d, (int)sizeof(T), Q).total;
+  auto kernel = rng_round_kernel<T, Q, DIRECT>;
+  const size_t smem = layout(r, p, d, (int)sizeof(T), Q, DIRECT).total;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -333,7 +359,9 @@ cudaError_t launch_q(const T* x, const float* scale, const float* offset, int n,
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long fit = (long long)sms * per_sm, grid = c < fit ? c : fit;
-  const bool bulk_rows = (d * sizeof(T)) % 16 == 0 && aligned_to(x, 16);
+  // staged: rows by bulk copies; direct: rows read as quads
+  const bool bulk_rows = DIRECT ? aligned_to(x, 4 * sizeof(T))
+                                : (d * sizeof(T)) % 16 == 0 && aligned_to(x, 16);
   const bool bulk_idx = r % 4 == 0 && p % 4 == 0 && aligned_to(ids, 16) &&
                         aligned_to(dists, 16) && aligned_to(si, 16) && aligned_to(sj, 16);
   kernel<<<(unsigned)grid, THREADS, smem, stream>>>(x, scale, offset, n, d, ids, dists, si, sj,
@@ -342,41 +370,54 @@ cudaError_t launch_q(const T* x, const float* scale, const float* offset, int n,
   return cudaGetLastError();
 }
 
+template <typename T, bool DIRECT>
+cudaError_t launch_d(const T* x, const float* scale, const float* offset, int n, int d,
+                     const int* ids, const float* dists, const int* si, const int* sj,
+                     long long c, int r, int p, int* dst, int* src, float* dij, uint8_t* kill,
+                     cudaStream_t stream) {
+  if (scale != nullptr)
+    return launch_q<T, true, DIRECT>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst,
+                                     src, dij, kill, stream);
+  return launch_q<T, false, DIRECT>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src,
+                                    dij, kill, stream);
+}
+
 template <typename T>
 cudaError_t launch(const void* xv, const float* scale, const float* offset, int n, int d,
                    const int* ids, const float* dists, const int* si, const int* sj,
                    long long c, int r, int p, int* dst, int* src, float* dij, uint8_t* kill,
-                   cudaStream_t stream) {
+                   bool direct, cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
-  if (scale != nullptr)
-    return launch_q<T, true>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src, dij,
+  if (direct)
+    return launch_d<T, true>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src, dij,
                              kill, stream);
-  return launch_q<T, false>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src, dij,
+  return launch_d<T, false>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src, dij,
                             kill, stream);
 }
 
 }  // namespace
 
-// Shared-memory bytes the kernel takes (the wrapper's size check).
-extern "C" int rng_round_smem_bytes(int r, int p, int d, int tsize, int q) {
-  return (int)layout(r, p, d, tsize, q != 0).total;
+// Shared-memory bytes the kernel takes, staged or direct (the wrapper picks
+// the path by them).
+extern "C" long long rng_round_smem_bytes(int r, int p, int d, int tsize, int q, int direct) {
+  return (long long)layout(r, p, d, tsize, q != 0, direct != 0).total;
 }
 
 extern "C" int rng_round_launch(const void* x, int dtype, const float* scale, const float* offset,
                                 int n, int d, const int* ids, const float* dists, const int* si,
                                 const int* sj, long long c, int r, int p, int* dst, int* src,
-                                float* dij, uint8_t* kill, cudaStream_t stream) {
+                                float* dij, uint8_t* kill, int direct, cudaStream_t stream) {
   if (c == 0) return cudaSuccess;
   switch (dtype) {
     case REPRO_F32:
       return launch<float>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src, dij,
-                           kill, stream);
+                           kill, direct != 0, stream);
     case REPRO_BF16:
       return launch<__nv_bfloat16>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src,
-                                   dij, kill, stream);
+                                   dij, kill, direct != 0, stream);
     case REPRO_I8:
       return launch<int8_t>(x, scale, offset, n, d, ids, dists, si, sj, c, r, p, dst, src, dij,
-                            kill, stream);
+                            kill, direct != 0, stream);
     default:
       return cudaErrorInvalidValue;
   }

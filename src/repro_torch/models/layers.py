@@ -1,4 +1,5 @@
-"""Shared model primitives: RMSNorm, RoPE, gated MLP, soft-capping, inits.
+"""Shared model primitives: RMSNorm, RoPE, gated MLP, soft-capping, inits,
+and the vision projector's GELU.
 
 A port of the JAX package's `models/layers.py`, operation for operation.
 """
@@ -57,3 +58,9 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0, dtype=torch.float3
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * shape[in_axis] ** -0.5).to(dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh-approximated GELU: `jax.nn.gelu`'s default
+    (`approximate=True`), not PyTorch's exact default."""
+    return F.gelu(x, approximate="tanh")

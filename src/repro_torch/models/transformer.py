@@ -1,18 +1,22 @@
-"""Model assembly: the dense text decoder stacks (gemma2-2b, h2o-danube-1.8b,
-gemma3-27b, gemma3-1b).
+"""Model assembly: config-driven decoder stacks for all ten configs: the
+dense text families, MoE (deepseek-moe-16b, qwen3-moe-235b-a22b), Mamba2
+(mamba2-130m), the Mamba2 + shared-attention hybrid (zamba2-7b), and the
+audio (musicgen-large) and vision (internvl2-2b) frontends.
 
-A port of the JAX package's `models/transformer.py` for its dense text
-families. The reference scans stacked parameters over each *segment* (one
-repeat of the layer pattern, `lax.scan` over the repeats); the port holds an
-`nn.ModuleList` of layers in layer order, with one KV-cache entry per
-layer. `layer_descs` and `build_segments` stay, so `convert` can map a
-segment's (repeat, position) to its layer: layer = segment offset +
-rep * unit + pos.
+A port of the JAX package's `models/transformer.py`. The reference scans
+stacked parameters over each *segment* (one repeat of the layer pattern,
+`lax.scan` over the repeats); the port holds an `nn.ModuleList` of layers in
+layer order, with one cache entry per layer. `layer_descs` and
+`build_segments` stay, so `convert` can map a segment's (repeat, position)
+to its layer: layer = segment offset + rep * unit + pos.
 
-MoE blocks, SSM blocks, zamba2's shared attention and the audio and vision
-frontends are not ported yet (ROADMAP A.5b): a config that needs one raises
-`NotImplementedError`. `forward` runs without remat, and without the FSDP
-gather hints of the reference (ROADMAP A.7).
+Zamba2's shared attention block has ONE parameter set (`LMParams.shared_attn`)
+applied at every `shared_attn` position, whose own layer entry is empty;
+each occurrence keeps its own KV cache. The audio frontend sums the
+codebook embeddings of a (B, S, ncb) token grid and reads one head a
+codebook; the vision frontend projects precomputed patch embeddings into
+the positions before the text. `forward` runs without remat, and without
+the FSDP gather hints of the reference (ROADMAP A.7).
 
 Every entry point takes `params`, an `LMParams`, and the `ArchConfig`, as
 the reference takes its parameter tree. Parameters are made with
@@ -29,25 +33,8 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for a config outside the dense text stack."""
-    kinds = set(cfg.layer_kinds())
-    missing = [
-        what
-        for what, has in (
-            ("MoE blocks", bool(cfg.n_experts)),
-            ("SSM blocks", "ssm" in kinds),
-            ("shared attention", "shared_attn" in kinds),
-            (f"the {cfg.modality} frontend", cfg.modality != "text"),
-        )
-        if has
-    ]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} are not ported yet (ROADMAP A.5b)"
-        )
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 
 # ---------------------------------------------------------------------------
@@ -123,50 +110,98 @@ class ParamTree(nn.Module):
         return name in self._parameters or name in self._modules
 
 
-class LMParams(nn.Module):
-    """The parameters of a dense text LM: the token embedding (V, D) (tied
-    to the output head unless `lm_head` (D, V) is present), `final_norm`
-    (D,), and `layers`, one `ParamTree` a layer in layer order, each with
-    `ln1`, `attn` {wq, wk, wv, wo[, q_norm, k_norm]}, `ln2`, `mlp`
-    {wi_gate, wi_up, wo} and, with post-norms, `post_ln1` / `post_ln2`."""
+def _frozen(t):
+    return None if t is None else nn.Parameter(t, requires_grad=False)
 
-    def __init__(self, embed, final_norm, layers: list[dict], lm_head=None):
+
+class LMParams(nn.Module):
+    """The parameters of an LM.
+
+    * `embed` (V, D), tied to the output head unless `lm_head` (D, V) is
+      present; for the audio frontend `codebook_embed` (ncb, V, D) and
+      `codebook_head` (ncb, D, V) instead;
+    * `vision_proj` {w1 (vision_dim, D), w2 (D, D)} for the vision frontend;
+    * `final_norm` (D,);
+    * `layers`, one `ParamTree` a layer in layer order: an attention layer
+      holds `ln1`, `attn` {wq, wk, wv, wo[, q_norm, k_norm]}, `ln2`, `mlp`
+      {wi_gate, wi_up, wo} or `moe` {router, wi_gate, wi_up, wo[, shared]}
+      and, with post-norms, `post_ln1` / `post_ln2`; an SSM layer `ln` and
+      `ssm`; a `shared_attn` layer nothing;
+    * `shared_attn`, the one {ln1, attn, ln2, mlp} every `shared_attn`
+      position applies.
+    """
+
+    def __init__(self, embed, final_norm, layers: list[dict], lm_head=None, *, shared_attn=None,
+                 codebook_embed=None, codebook_head=None, vision_proj=None):
         super().__init__()
-        self.embed = nn.Parameter(embed, requires_grad=False)
-        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
-        self.lm_head = None if lm_head is None else nn.Parameter(lm_head, requires_grad=False)
+        self.embed = _frozen(embed)
+        self.final_norm = _frozen(final_norm)
+        self.lm_head = _frozen(lm_head)
+        self.codebook_embed = _frozen(codebook_embed)
+        self.codebook_head = _frozen(codebook_head)
+        self.vision_proj = None if vision_proj is None else ParamTree(vision_proj)
+        self.shared_attn = None if shared_attn is None else ParamTree(shared_attn)
         self.layers = nn.ModuleList(ParamTree(p) for p in layers)
 
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.device
 
-def _init_layer(gen: torch.Generator, cfg: ArchConfig, dtype) -> dict:
+
+def _zeros(gen: torch.Generator, d: int, dtype):
+    return torch.zeros((d,), dtype=dtype, device=gen.device)
+
+
+def _dense_mlp(gen: torch.Generator, cfg: ArchConfig, dtype) -> dict:
     d = cfg.d_model
-
-    def zeros():
-        return torch.zeros((d,), dtype=dtype, device=gen.device)
-
-    p = {"ln1": zeros(), "attn": A.init_attn_params(gen, cfg, dtype), "ln2": zeros()}
-    if cfg.post_norm:
-        p["post_ln1"], p["post_ln2"] = zeros(), zeros()
-    p["mlp"] = {
+    return {
         "wi_gate": L.dense_init(gen, (d, cfg.d_ff), dtype=dtype),
         "wi_up": L.dense_init(gen, (d, cfg.d_ff), dtype=dtype),
         "wo": L.dense_init(gen, (cfg.d_ff, d), dtype=dtype),
     }
+
+
+def _init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str, mlp_kind: str, dtype) -> dict:
+    d = cfg.d_model
+    if kind == "ssm":
+        return {"ln": _zeros(gen, d, dtype), "ssm": S.init_ssm_params(gen, cfg, dtype)}
+    if kind == "shared_attn":
+        return {}  # the weights live in LMParams.shared_attn
+    p = {"ln1": _zeros(gen, d, dtype), "attn": A.init_attn_params(gen, cfg, dtype),
+         "ln2": _zeros(gen, d, dtype)}
+    if cfg.post_norm:
+        p["post_ln1"], p["post_ln2"] = _zeros(gen, d, dtype), _zeros(gen, d, dtype)
+    if mlp_kind == "moe":
+        p["moe"] = M.init_moe_params(gen, cfg, dtype)
+    else:
+        p["mlp"] = _dense_mlp(gen, cfg, dtype)
     return p
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, dtype=torch.float32, device="cuda") -> LMParams:
     """Random parameters on `device`, drawn from a `torch.Generator` seeded
-    with `seed` (norm scales zero, as the reference initialises them)."""
-    check_supported(cfg)
+    with `seed` (norm scales zero, as the reference initialises them).
+    `dtype` is every weight's but the MoE router's and the SSM's `A_log`,
+    `D` and `dt_bias`, which are fp32."""
     gen = torch.Generator(_device.resolve(device)).manual_seed(seed)
-    embed = L.dense_init(gen, (cfg.vocab, cfg.d_model), in_axis=1, dtype=dtype)
-    lm_head = None
-    if not cfg.tie_embeddings:
-        lm_head = L.dense_init(gen, (cfg.d_model, cfg.vocab), dtype=dtype)
-    layers = [_init_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)]
-    final_norm = torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)
-    return LMParams(embed, final_norm, layers, lm_head)
+    d, v = cfg.d_model, cfg.vocab
+    kw = {}
+    embed = lm_head = None
+    if cfg.modality == "audio_tokens":
+        kw["codebook_embed"] = L.dense_init(gen, (cfg.n_codebooks, v, d), in_axis=2, dtype=dtype)
+        kw["codebook_head"] = L.dense_init(gen, (cfg.n_codebooks, d, v), in_axis=1, dtype=dtype)
+    else:
+        embed = L.dense_init(gen, (v, d), in_axis=1, dtype=dtype)
+        if not cfg.tie_embeddings:
+            lm_head = L.dense_init(gen, (d, v), dtype=dtype)
+    if cfg.modality == "vision_text":
+        kw["vision_proj"] = {"w1": L.dense_init(gen, (cfg.vision_dim, d), dtype=dtype),
+                             "w2": L.dense_init(gen, (d, d), dtype=dtype)}
+    if "shared_attn" in cfg.layer_kinds():
+        kw["shared_attn"] = {"ln1": _zeros(gen, d, dtype), "attn": A.init_attn_params(gen, cfg, dtype),
+                             "ln2": _zeros(gen, d, dtype), "mlp": _dense_mlp(gen, cfg, dtype)}
+    layers = [_init_layer(gen, cfg, kind, mlp_kind, dtype) for kind, mlp_kind in layer_descs(cfg)]
+    return LMParams(embed, _zeros(gen, d, dtype), layers, lm_head, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -174,30 +209,53 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, dtype=torch.float32, device="
 # ---------------------------------------------------------------------------
 
 
-def _mlp_and_norms(lp, cfg: ArchConfig, x, attn_out):
+def _mlp_and_norms(lp, cfg: ArchConfig, mlp_kind: str, x, attn_out):
+    """The attention residual, then the MLP (dense or MoE) and its residual.
+    Returns (x, the MoE block's aux or None)."""
     if cfg.post_norm:
         attn_out = L.rms_norm(attn_out, lp["post_ln1"], cfg.norm_eps)
     x = x + attn_out
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    mlp = lp["mlp"]
-    mlp_out = L.gated_mlp(h, mlp["wi_gate"], mlp["wi_up"], mlp["wo"])
+    aux = None
+    if mlp_kind == "moe":
+        mlp_out, aux = M.moe_block(lp["moe"], cfg, h)
+    else:
+        mlp = lp["mlp"]
+        mlp_out = L.gated_mlp(h, mlp["wi_gate"], mlp["wi_up"], mlp["wo"])
     if cfg.post_norm:
         mlp_out = L.rms_norm(mlp_out, lp["post_ln2"], cfg.norm_eps)
-    return x + mlp_out
+    return x + mlp_out, aux
 
 
-def _apply_layer(lp, cfg: ArchConfig, kind: str, x, positions):
-    """Full-sequence layer. Returns (x, {"k", "v"})."""
+def _attn_params(lp, shared_p, kind: str):
+    """(the layer's parameters, the attention kind): a `shared_attn`
+    position applies the shared block as global attention."""
+    return (shared_p, "global") if kind == "shared_attn" else (lp, kind)
+
+
+def _apply_layer(lp, shared_p, cfg: ArchConfig, kind: str, mlp_kind: str, x, positions):
+    """Full-sequence layer. Returns (x, cache entry, MoE aux or None)."""
+    if kind == "ssm":
+        h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
+        out, cache = S.ssm_block(lp["ssm"], cfg, h, return_cache=True)
+        return x + out, cache, None
+    lp, kind = _attn_params(lp, shared_p, kind)
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     attn_out, (k, v) = A.attention_block(lp["attn"], cfg, h, positions, kind=kind)
-    return _mlp_and_norms(lp, cfg, x, attn_out), {"k": k, "v": v}
+    x, aux = _mlp_and_norms(lp, cfg, mlp_kind, x, attn_out)
+    return x, {"k": k, "v": v}, aux
 
 
-def _apply_layer_decode(lp, cfg: ArchConfig, kind: str, x1, cache, pos):
+def _apply_layer_decode(lp, shared_p, cfg: ArchConfig, kind: str, mlp_kind: str, x1, cache, pos):
     """Single-token layer; `cache` is written in place."""
+    if kind == "ssm":
+        h = L.rms_norm(x1, lp["ln"], cfg.norm_eps)
+        out, cache = S.ssm_decode_block(lp["ssm"], cfg, h, cache)
+        return x1 + out, cache
+    lp, kind = _attn_params(lp, shared_p, kind)
     h = L.rms_norm(x1, lp["ln1"], cfg.norm_eps)
     attn_out, cache = A.attention_decode_block(lp["attn"], cfg, h, cache, pos, kind=kind)
-    return _mlp_and_norms(lp, cfg, x1, attn_out), cache
+    return _mlp_and_norms(lp, cfg, mlp_kind, x1, attn_out)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -205,25 +263,48 @@ def _apply_layer_decode(lp, cfg: ArchConfig, kind: str, x1, cache, pos):
 # ---------------------------------------------------------------------------
 
 
-def embed_inputs(params: LMParams, cfg: ArchConfig, batch, act_dtype=torch.bfloat16):
-    """batch {"tokens": (B, S)} -> (x (B, S, D), positions (S,)).
-
-    The rows are gathered before the cast to `act_dtype` (the same values
-    as casting the table first); `embed_scale` multiplies by sqrt(d_model)
-    cast to the activation dtype."""
-    check_supported(cfg)
-    tokens = batch["tokens"].to(params.embed.device).long()
-    x = params.embed[tokens].to(act_dtype)
+def _scaled(x, cfg: ArchConfig, act_dtype):
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=act_dtype, device=x.device)
-    return x, torch.arange(x.shape[1], device=x.device)
+    return x
+
+
+def embed_inputs(params: LMParams, cfg: ArchConfig, batch, act_dtype=torch.bfloat16):
+    """batch -> (x (B, S, D), positions (S,)).
+
+    Text: {"tokens": (B, S)}. Audio: {"tokens": (B, S, ncb)}, the codebook
+    embeddings summed in codebook order in the activation dtype. Vision:
+    {"tokens": (B, S_text), "patch_embeds": (B, P, vision_dim)}, the
+    projected patches (w1, tanh GELU, w2) before the text. Rows are
+    gathered before the cast to `act_dtype` (the same values as casting
+    the table first); `embed_scale` multiplies by sqrt(d_model) cast to the
+    activation dtype."""
+    dev = params.device
+    tokens = batch["tokens"].to(dev).long()
+    if cfg.modality == "audio_tokens":
+        emb = params.codebook_embed
+        x = torch.zeros((*tokens.shape[:2], cfg.d_model), dtype=act_dtype, device=dev)
+        for cb in range(cfg.n_codebooks):
+            x = x + emb[cb][tokens[..., cb]].to(act_dtype)
+    elif cfg.modality == "vision_text":
+        vp = params.vision_proj
+        patches = batch["patch_embeds"].to(dev).to(act_dtype)
+        pe = L.gelu(patches @ vp["w1"].to(act_dtype)) @ vp["w2"].to(act_dtype)
+        x = torch.cat([pe, params.embed[tokens].to(act_dtype)], dim=1)
+    else:
+        x = params.embed[tokens].to(act_dtype)
+    x = _scaled(x, cfg, act_dtype)
+    return x, torch.arange(x.shape[1], device=dev)
 
 
 def lm_logits(params: LMParams, cfg: ArchConfig, x) -> torch.Tensor:
-    """(..., D) hidden -> (..., V) fp32 logits: the tied embedding (or
-    `lm_head`), then the final softcap."""
+    """(..., D) hidden -> fp32 logits, (..., V), or (..., ncb, V) for the
+    audio heads: the tied embedding (or `lm_head`), then the final
+    softcap."""
     x32 = x.float()
-    if cfg.tie_embeddings:
+    if cfg.modality == "audio_tokens":
+        logits = torch.einsum("...d,cdv->...cv", x32, params.codebook_head.float())
+    elif cfg.tie_embeddings:
         logits = x32 @ params.embed.float().T
     else:
         logits = x32 @ params.lm_head.float()
@@ -239,19 +320,21 @@ def forward(params: LMParams, cfg: ArchConfig, batch, *, act_dtype=torch.bfloat1
             return_cache: bool = False, return_hidden: bool = False):
     """Full-sequence forward. Returns (logits | hidden, aux[, caches]).
 
-    `hidden` is the post-`final_norm` state (B, S, D); `aux` the scalar
-    auxiliary loss (zero: no MoE block here); `caches` one {"k", "v"} of
-    (B, S, K, Dh) a layer."""
+    `hidden` is the post-`final_norm` state (B, S, D); `aux` the fp32 sum of
+    the MoE layers' `moe_lb_loss` (zero without MoE); `caches` one entry a
+    layer: {"k", "v"} of (B, S, K, Dh), or an SSM layer's {"h", "conv"}."""
     x, positions = embed_inputs(params, cfg, batch, act_dtype)
     bpos = positions[None, :].expand(x.shape[0], -1)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
-    for lp, (kind, _) in zip(params.layers, layer_descs(cfg)):
-        x, entry = _apply_layer(lp, cfg, kind, x, bpos)
+    for lp, (kind, mlp_kind) in zip(params.layers, layer_descs(cfg)):
+        x, entry, layer_aux = _apply_layer(lp, params.shared_attn, cfg, kind, mlp_kind, x, bpos)
+        if layer_aux is not None:
+            aux = aux + layer_aux["moe_lb_loss"]
         if return_cache:
             caches.append(entry)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     out = x if return_hidden else lm_logits(params, cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_cache:
         return out, aux, caches
     return out, aux
@@ -259,30 +342,41 @@ def forward(params: LMParams, cfg: ArchConfig, batch, *, act_dtype=torch.bfloat1
 
 def make_cache(cfg: ArchConfig, batch_size: int, s_max: int, dtype=torch.bfloat16,
                device="cuda") -> list[dict]:
-    """An empty KV cache: one {"k", "v"} of (B, s_max, K, Dh) a layer."""
-    check_supported(cfg)
+    """An empty cache, one entry a layer: {"k", "v"} of (B, s_max, K, Dh),
+    or for an SSM layer {"h": (B, nh, hd, st) fp32, "conv": (B, W - 1, C)}."""
     dev = _device.resolve(device)
-    shape = (batch_size, s_max, cfg.n_kv_heads, cfg.head_dim)
-    return [
-        {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        for _ in range(cfg.n_layers)
-    ]
+    out = []
+    for kind in cfg.layer_kinds():
+        if kind == "ssm":
+            out.append({
+                "h": torch.zeros((batch_size, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                                 dtype=torch.float32, device=dev),
+                "conv": torch.zeros((batch_size, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                                    dtype=dtype, device=dev),
+            })
+        else:
+            shape = (batch_size, s_max, cfg.n_kv_heads, cfg.head_dim)
+            out.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                        "v": torch.zeros(shape, dtype=dtype, device=dev)})
+    return out
 
 
 def prefill(params: LMParams, cfg: ArchConfig, batch, s_max: int | None = None,
             act_dtype=torch.bfloat16, return_hidden: bool = False):
-    """Process the prompt; returns (last-position logits (B, V), caches,
-    prompt length), and with `return_hidden=True` also the post-`final_norm`
-    hidden state of the last prompt position (B, D), the retrieval query of
-    the first generated token. Only the last position's logits are
-    computed; the caches are zero-padded to `s_max` slots."""
+    """Process the prompt; returns (last-position logits (B, V) or
+    (B, ncb, V), caches, prompt length), and with `return_hidden=True` also
+    the post-`final_norm` hidden state of the last prompt position (B, D),
+    the retrieval query of the first generated token. Only the last
+    position's logits are computed; the KV caches are zero-padded to
+    `s_max` slots (an SSM layer's state has no length)."""
     hidden, _, caches = forward(params, cfg, batch, act_dtype=act_dtype, return_cache=True,
                                 return_hidden=True)
     logits = lm_logits(params, cfg, hidden[:, -1:])
     s = hidden.shape[1]
     if s_max is not None and s_max > s:
         pad = (0, 0, 0, 0, 0, s_max - s)
-        caches = [{"k": F.pad(c["k"], pad), "v": F.pad(c["v"], pad)} for c in caches]
+        caches = [{"k": F.pad(c["k"], pad), "v": F.pad(c["v"], pad)} if "k" in c else c
+                  for c in caches]
     if return_hidden:
         return logits[:, -1], caches, s, hidden[:, -1]
     return logits[:, -1], caches, s
@@ -290,15 +384,22 @@ def prefill(params: LMParams, cfg: ArchConfig, batch, s_max: int | None = None,
 
 def decode_step(params: LMParams, cfg: ArchConfig, caches, tokens, pos,
                 act_dtype=torch.bfloat16, return_hidden: bool = False):
-    """One decode step for every sequence: tokens (B,) at positions pos (B,).
+    """One decode step for every sequence: tokens (B,), or (B, ncb) for
+    audio, at positions pos (B,). Vision decode is text-only (the patches
+    were consumed at prefill).
 
     The caches are updated in place (the reference donates them). Returns
-    (logits (B, V), caches), and with `return_hidden=True` also the
-    post-`final_norm` hidden state (B, D) the logits were read from."""
-    x, _ = embed_inputs(params, cfg, {"tokens": tokens[:, None]}, act_dtype)
+    (logits (B, V) or (B, ncb, V), caches), and with `return_hidden=True`
+    also the post-`final_norm` hidden state (B, D) the logits were read
+    from."""
+    if cfg.modality == "vision_text":
+        x = params.embed[tokens.to(params.device).long()[:, None]].to(act_dtype)
+        x = _scaled(x, cfg, act_dtype)
+    else:
+        x, _ = embed_inputs(params, cfg, {"tokens": tokens[:, None]}, act_dtype)
     pos = pos.to(x.device)
-    for lp, (kind, _), cache in zip(params.layers, layer_descs(cfg), caches):
-        x, _ = _apply_layer_decode(lp, cfg, kind, x, cache, pos)
+    for lp, (kind, mlp_kind), cache in zip(params.layers, layer_descs(cfg), caches):
+        x, _ = _apply_layer_decode(lp, params.shared_attn, cfg, kind, mlp_kind, x, cache, pos)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = lm_logits(params, cfg, x)
     if return_hidden:

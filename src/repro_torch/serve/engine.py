@@ -1,4 +1,4 @@
-"""Batched LM serving engine: prefill + decode loop with KV caches.
+"""Batched LM serving engine: prefill + decode loop with KV / SSM caches.
 
 A port of the JAX package's `serve/engine.py`: fixed-batch decoding with
 greedy or temperature sampling, per-sequence stop handling, and the two
@@ -18,6 +18,8 @@ and decode writes the KV caches in place (the reference jits its steps and
 donates the caches).
 Greedy decoding is `argmax`; temperature sampling draws from the engine's
 own `torch.Generator` (`seed=`), so its draws are not `jax.random`'s.
+Audio models sample every codebook's head, (B, ncb) tokens a step, and take
+no `eos_id`, as in the reference engine.
 """
 
 from __future__ import annotations
@@ -35,10 +37,9 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, params: T.LMParams, *, s_max: int,
                  act_dtype=torch.bfloat16, logit_hook: Callable | None = None,
                  token_hook: Callable | None = None, seed: int = 0, device="cuda"):
-        T.check_supported(cfg)
         self.device = _device.resolve(device)
-        if params.embed.device != self.device:
-            raise ValueError(f"the parameters are on {params.embed.device}, not {self.device}")
+        if params.device != self.device:
+            raise ValueError(f"the parameters are on {params.device}, not {self.device}")
         self.cfg = cfg
         self.params = params
         self.s_max = s_max
@@ -48,24 +49,32 @@ class ServeEngine:
         self.gen = torch.Generator(self.device).manual_seed(seed)
 
     def _sample(self, logits: torch.Tensor, temperature: float) -> torch.Tensor:
+        """(..., V) logits -> (...) int32 tokens (the audio heads' (B, ncb))."""
         if temperature == 0.0:
             return logits.argmax(-1).to(torch.int32)
         probs = torch.softmax(logits.float() / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=self.gen)[:, 0].to(torch.int32)
+        tok = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1, generator=self.gen)
+        return tok.reshape(probs.shape[:-1]).to(torch.int32)
 
     @torch.no_grad()
     def generate(self, batch, *, max_new_tokens: int, temperature: float = 0.0,
                  eos_id: int | None = None, return_hidden: bool = False) -> dict:
-        """Prefill the prompt batch {"tokens": (B, S)}, then decode.
+        """Prefill the prompt batch, then decode: {"tokens": (B, S)}, the
+        audio frontend's (B, S, ncb), and the vision frontend's
+        "patch_embeds" (B, P, vision_dim) beside its text tokens.
 
-        Returns a dict with ``tokens`` (B, T) int32 and ``final_pos`` (B,);
+        Returns a dict with ``tokens`` (B, T) int32 ((B, T, ncb) for audio)
+        and ``final_pos`` (B,);
         with ``return_hidden=True`` also ``hidden`` (B, T, D): per step, the
         post-`final_norm` state its token was sampled from (``hidden[:, t]``
         is the retrieval key whose next token is ``tokens[:, t]``, the pair
         a kNN-LM datastore stores).
         """
         cfg, dev = self.cfg, self.device
-        batch = {"tokens": _device.put(batch["tokens"], torch.int32, dev)}
+        batch = {name: _device.put(v, torch.int32 if name == "tokens" else None, dev)
+                 for name, v in batch.items()}
+        if cfg.modality == "audio_tokens":
+            eos_id = None  # every codebook samples on, as in the reference engine
         logits, caches, plen, hidden = T.prefill(
             self.params, cfg, batch, s_max=self.s_max, act_dtype=self.act_dtype,
             return_hidden=True,

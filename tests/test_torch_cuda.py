@@ -27,10 +27,17 @@ corpus-sharded search runs it (3/4 of the slots masked, a 1-slot table),
 and that search bitwise the replicated one on the card; and the
 visited insert at H = 1, 3, 8, 512, 4096 and R = 1, 20, 48, bitwise the column
 loop; and at gemma3-1b's width D = 1152 (the kNN-LM datastore's rows): B1
-at R = P = 24 and 48 and raising past its shared memory at R = 64, B3 at Q = 32 and
+at R = P = 24 and 48 and on its direct-read path past its shared memory at
+R = 64, B3 at Q = 32 and
 1,000 with the mask, B6 on the re-base's runs, each at every storage rung,
 the deterministic vote, and the fp32 datastore bitwise the array-backed
-path and the engine-routed retrieval. Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
+path and the engine-routed retrieval; B1's forced direct-read path bitwise
+its staged path at D = 128 and 1152 at every storage rung, and within
+tolerance of the plain version at D = 3584 and 4096 (zamba2-7b's and
+qwen3-moe's widths, where only the direct path runs); the MoE block bitwise
+across two calls at T = 4,096 tokens (no float atomics in its combine) and
+the chunked SSD scan against the recurrence at zamba2's head shapes.
+Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
 summation order; the dequant itself is bitwise the plain version's);
 pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition cancellation);
 topr_merge, the visited tables and every integer output exactly, except rng_round's hit test
@@ -728,14 +735,100 @@ def test_dynamic_engine_on_the_card_matches_twin_index(dev):
 KNN_D = 1152  # gemma3-1b's hidden width: the kNN-LM datastore's rows
 
 
+def _round_inputs(dev, precision, n, d, c, r, p):
+    g = torch.Generator(dev).manual_seed(n + d + r)
+    data, scale, offset = _store(synthetic.vector_dataset(g, n, d), precision)
+    ids = torch.randint(0, n, (c, r), generator=g, device=dev, dtype=torch.int32)
+    ids[torch.rand((c, r), generator=g, device=dev) < 0.2] = -1
+    dists = torch.rand((c, r), generator=g, device=dev) * 2 * d
+    dists = torch.where(ids >= 0, dists, torch.inf)
+    si = torch.randint(0, r, (c, p), generator=g, device=dev, dtype=torch.int32)
+    sj = torch.randint(0, r, (c, p), generator=g, device=dev, dtype=torch.int32)
+    return data, ids, dists, si, sj, scale, offset
+
+
 def test_rng_round_kernel_raises_past_its_shared_memory(dev):
-    """64 fp32 rows of 1152 (295 KB) do not fit a block: the wrapper
-    raises, nothing falls back."""
-    x = torch.randn((100, KNN_D), device=dev)
-    ids = torch.zeros((10, 64), dtype=torch.int32, device=dev)
-    si = torch.zeros((10, 4), dtype=torch.int32, device=dev)
+    """64 fp32 rows of 1152 (295 KB) do not fit a block: the wrapper takes
+    the direct-read path (no fallback, counted as `rng_round+direct`) and
+    agrees with the plain version; it raises only where even the index ring
+    and the scale / offset outgrow shared memory."""
+    args = _round_inputs(dev, "fp32", 3000, KNN_D, 500, 64, 64)
+    got = _launched("rng_round+direct", lambda: rng_round(*args))
+    want = ref.rng_round_ref(*args)
+    torch.testing.assert_close(got[2], want[2], rtol=RTOL, atol=ATOL)
+    assert torch.equal(got[1], want[1])
+    d = 32_000  # 2 x 128 KB of fp32 scale / offset
+    x = torch.zeros((4, d), dtype=torch.int8, device=dev)
+    ids = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    ones = torch.ones((d,), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
-        rng_round(x, ids, torch.zeros((10, 64), device=dev), si, si)
+        rng_round(x, ids, torch.zeros((2, 4), device=dev), ids, ids, ones, ones)
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+@pytest.mark.parametrize("n,d,c,r,p", [(6000, 128, 5000, 48, 48), (900, 33, 800, 12, 16),
+                                       (3000, 1152, 2000, 24, 24)])
+def test_rng_round_direct_path_is_bitwise_the_staged_path(dev, precision, n, d, c, r, p):
+    args = _round_inputs(dev, precision, n, d, c, r, p)
+    name = "rng_round" + ("" if precision == "fp32" else "/" + precision)
+    staged = _launched(name, lambda: rng_round(*args))
+    direct = _launched(name + "+direct", lambda: rng_round(*args, _direct=True))
+    for a, b in zip(staged, direct):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+@pytest.mark.parametrize("d", [3584, 4096])
+def test_rng_round_direct_path_past_shared_memory_matches_plain(dev, precision, d):
+    """R = P = 24 at zamba2-7b's and qwen3-moe's widths: fp32 rows do not
+    fit (the direct path runs unforced); bf16 and int8 are forced."""
+    args = _round_inputs(dev, precision, 4000, d, 1500, 24, 24)
+    name = "rng_round" + ("" if precision == "fp32" else "/" + precision) + "+direct"
+    got = _launched(name, lambda: rng_round(*args, _direct=precision != "fp32"))
+    want = ref.rng_round_ref(*args)
+    torch.testing.assert_close(got[2], want[2], rtol=RTOL, atol=ATOL)
+    assert torch.equal(got[1], want[1])
+    data, ids, dists, si, sj = args[:5]
+    thr = torch.maximum(dists.gather(1, si.long()), dists.gather(1, sj.long()))
+    near = (want[2] - thr).abs() <= ATOL + RTOL * thr.abs()
+    assert not ((got[0] != want[0]) & ~near).any()
+    assert not ((got[3] != want[3]).any(1) & ~near.any(1)).any()
+
+
+def test_moe_block_on_the_card_repeats_bitwise(dev):
+    """deepseek-moe-16b's expert shapes (E = 64, top-6, d_expert 1408, two
+    shared experts) at T = 4,096 bf16 tokens with drops: two calls give the
+    same bits, and the output is finite."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+
+    cfg = get_arch("deepseek-moe-16b")
+    gen = torch.Generator(dev).manual_seed(13)
+    params = M.init_moe_params(gen, cfg, dtype=torch.bfloat16)
+    x = torch.randn((4, 1024, cfg.d_model), generator=gen, device=dev).bfloat16()
+    first, aux = M.moe_block(params, cfg, x)
+    for _ in range(2):
+        again, aux2 = M.moe_block(params, cfg, x)
+        assert torch.equal(first, again)
+        assert float(aux2["moe_drop_frac"]) == float(aux["moe_drop_frac"])
+    assert bool(torch.isfinite(first).all())
+
+
+def test_ssd_chunked_on_the_card_matches_the_recurrence(dev):
+    """zamba2-7b's heads (nh 112, hd 64, st 64) at chunk 128, fp32, TF32 off."""
+    from repro_torch.models import ssm as S
+
+    g = torch.Generator(dev).manual_seed(14)
+    b, s, nh, hd, st = 2, 256, 112, 64, 64
+    xh = torch.randn((b, s, nh, hd), generator=g, device=dev)
+    a = torch.sigmoid(torch.randn((b, s, nh), generator=g, device=dev) + 1.0)
+    bb = torch.randn((b, s, st), generator=g, device=dev)
+    cc = torch.randn((b, s, st), generator=g, device=dev)
+    h0 = torch.randn((b, nh, hd, st), generator=g, device=dev)
+    y, h = S._ssd_chunked(xh, a, bb, cc, h0, 128)
+    ny, nh_ = S.ssd_naive(xh, a, bb, cc, h0)
+    torch.testing.assert_close(y, ny, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, nh_, rtol=1e-4, atol=1e-4)
 
 
 def test_knn_vote_is_deterministic_on_the_card(dev):

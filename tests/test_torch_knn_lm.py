@@ -12,7 +12,8 @@ Against the JAX package (inputs from numpy seeds, state carried across with
   * `ServeEngine.generate` at reduced gemma3-1b, greedy, fp32: tokens equal
     the reference engine's without hooks and with a logit hook over a frozen
     converted `KNNDatastore`, and, with `eos_id`, tokens and `final_pos`
-    equal the reference's.
+    equal the reference's; the same hook in reduced deepseek-moe-16b's (MoE)
+    decode loop.
 
 Port against port, the reference suite's `DynamicDatastore` cases: fp32
 retrieval bitwise the array-backed path pinned to the same entry and
@@ -55,6 +56,7 @@ from repro_torch.core import (
 from repro_torch.retrieval import knn_lm
 from repro_torch.retrieval.knn_lm import DynamicDatastore
 from repro_torch.serve import ServeEngine
+from _torch_lm import make_model
 
 torch.set_num_threads(1)
 
@@ -286,7 +288,7 @@ def lm():
     return cfg, params, jcfg, jparams, tokens
 
 
-def test_generate_matches_the_reference_engine(lm):
+def _generate_with_and_without_a_hook(lm):
     cfg, params, jcfg, jparams, tokens = lm
     rng = np.random.default_rng(3)
     keys = rng.standard_normal((N, cfg.d_model)).astype(np.float32)
@@ -307,6 +309,15 @@ def test_generate_matches_the_reference_engine(lm):
         assert g["tokens"].dtype == torch.int32
         assert np.array_equal(g["tokens"].numpy(), np.asarray(w["tokens"]))
         assert np.array_equal(g["final_pos"].numpy(), np.asarray(w["final_pos"]))
+
+
+def test_generate_matches_the_reference_engine(lm):
+    _generate_with_and_without_a_hook(lm)
+
+
+def test_generate_with_knn_hooks_over_moe_matches_the_reference_engine():
+    cfg, params, jcfg, jparams, batch = make_model("deepseek-moe-16b", b=2, s=8)
+    _generate_with_and_without_a_hook((cfg, params, jcfg, jparams, batch["tokens"]))
 
 
 def test_real_logit_hook_runs_inside_generate(lm):

@@ -1,4 +1,6 @@
-"""The port's dense text LM stack against the JAX package, on the CPU.
+"""The port's LM stack against the JAX package, on the CPU: the dense text
+families and the audio and vision frontends (the MoE and SSM families are
+in `test_torch_moe.py` and `test_torch_ssm.py`).
 
 The same inputs, made from numpy seeds, go through `repro.models` and
 `repro_torch.models` at `reduced()` sizes; parameters are the reference's
@@ -15,11 +17,18 @@ arithmetic, op for op; XLA and PyTorch sum matmuls in other orders).
     (logits, hidden, every layer's KV cache) for the four dense text
     architectures; a decode at pos >= s_max clamps its cache write to the
     last slot as the reference's `dynamic_update_slice` does;
+  * musicgen-large (summed codebook embeddings, one head a codebook,
+    (B, ncb) decode tokens) and internvl2-2b (patch embeddings projected
+    through the tanh GELU before the text; text-only decode): embed,
+    logits, forward, prefill and three decode steps against the reference,
+    and decode against the forward's last position (rtol / atol 5e-3, the
+    reference's own);
+  * `ServeEngine.generate` for audio and vision, greedy: tokens and
+    `final_pos` equal the reference engine's (audio ignores `eos_id`);
   * `param_count` / `active_param_count` of all ten configs equal the
-    reference's, and an initialised port model holds as many parameters as
-    the reference's tree;
-  * the families outside this slice raise NotImplementedError naming
-    ROADMAP A.5b.
+    reference's, and for each of the ten an initialised port model holds as
+    many parameters as the reference's tree, and the converted tree every
+    leaf of it.
 """
 
 import jax
@@ -34,18 +43,28 @@ from repro.configs import reduced as jreduced
 from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import transformer as JT
+from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch import convert
 from repro_torch.configs import get_arch, list_archs, reduced
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.serve import ServeEngine
+from _torch_lm import (
+    batch_for,
+    check_decode_matches_forward,
+    check_forward,
+    check_prefill_and_decode,
+    jbatch,
+    make_model,
+    tbatch,
+)
 
 torch.set_num_threads(1)
 
 RTOL, ATOL = 1e-4, 1e-4
 DENSE = ("gemma2-2b", "h2o-danube-1.8b", "gemma3-27b", "gemma3-1b")
-OUT_OF_SLICE = ("deepseek-moe-16b", "qwen3-moe-235b-a22b", "mamba2-130m", "zamba2-7b",
-                "musicgen-large", "internvl2-2b")
+FRONTENDS = ("musicgen-large", "internvl2-2b")
 B, S, S_MAX = 2, 24, 32
 
 
@@ -245,24 +264,70 @@ def test_param_counts_equal_the_reference_for_all_ten_configs():
     assert get_arch("gemma3-1b").param_count() == 999_811_584
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", list_archs())
 def test_an_initialised_model_holds_the_reference_parameters(name):
     """As many parameters as the reference's tree (`param_count()` leaves
-    out the norm scales)."""
+    out the norm scales), and the converted tree every leaf of it."""
     cfg = reduced(get_arch(name))
     params = T.init_params(cfg, device="cpu")
-    shapes = jax.eval_shape(lambda k: JT.init_params(k, jreduced(jget_arch(name))),
-                            jax.random.PRNGKey(0))
+    jcfg = jreduced(jget_arch(name))
+    shapes = jax.eval_shape(lambda k: JT.init_params(k, jcfg), jax.random.PRNGKey(0))
     held = sum(p.numel() for p in params.parameters())
     assert held == sum(a.size for a in jax.tree.leaves(shapes))
     assert not any(p.requires_grad for p in params.parameters())
     assert len(params.layers) == cfg.n_layers
+    # a tree of the reference's shapes, each leaf a distinct value
+    leaves, treedef = jax.tree.flatten(shapes)
+    tree = jax.tree.unflatten(treedef, [np.full(a.shape, i, np.float32) for i, a in enumerate(leaves)])
+    carried = convert.lm_params_from_jax(tree, cfg, device="cpu")
+    assert sorted(p.shape for p in carried.parameters()) == sorted(
+        p.shape for p in params.parameters())
+    assert sum(float(p.double().sum()) for p in carried.parameters()) == sum(
+        i * a.size for i, a in enumerate(leaves))
 
 
-@pytest.mark.parametrize("name", OUT_OF_SLICE)
-def test_out_of_slice_families_raise(name):
-    cfg = reduced(get_arch(name))
-    with pytest.raises(NotImplementedError, match="A.5b"):
-        T.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.5b"):
-        T.make_cache(cfg, 1, 8, device="cpu")
+# -- the audio and vision frontends --------------------------------------------
+
+
+@pytest.fixture(scope="module", params=FRONTENDS)
+def frontend(request):
+    return make_model(request.param)
+
+
+def test_frontend_embed_and_logits_match_the_reference(frontend):
+    cfg, params, jcfg, jparams, batch = frontend
+    x, pos = T.embed_inputs(params, cfg, tbatch(batch), act_dtype=torch.float32)
+    jx, jpos = JT.embed_inputs(jparams, jcfg, jbatch(batch), act_dtype=jnp.float32)
+    assert x.shape == (B, S, cfg.d_model) and torch.equal(pos, torch.arange(S))
+    close(x, jx)
+    logits = T.lm_logits(params, cfg, x)
+    close(logits, JT.lm_logits(jparams, jcfg, jnp.asarray(x.numpy())))
+    if cfg.modality == "audio_tokens":
+        assert logits.shape == (B, S, cfg.n_codebooks, cfg.vocab)
+
+
+def test_frontend_forward_matches_the_reference(frontend):
+    check_forward(frontend)
+
+
+def test_frontend_prefill_and_decode_match_the_reference(frontend):
+    check_prefill_and_decode(frontend, S_MAX)
+
+
+@pytest.mark.parametrize("name", FRONTENDS)
+def test_frontend_decode_matches_the_forward_last_position(name):
+    check_decode_matches_forward(name)
+
+
+@pytest.mark.parametrize("name", FRONTENDS)
+def test_generate_for_audio_and_vision_matches_the_reference_engine(name):
+    cfg, params, jcfg, jparams, _ = make_model(name)
+    batch = batch_for(cfg, 3, B, 16)
+    want = JServeEngine(jcfg, jparams, s_max=S_MAX, act_dtype=jnp.float32).generate(
+        jbatch(batch), max_new_tokens=5, eos_id=1)
+    got = ServeEngine(cfg, params, s_max=S_MAX, act_dtype=torch.float32, device="cpu").generate(
+        batch, max_new_tokens=5, eos_id=1)
+    shape = (B, 5, cfg.n_codebooks) if cfg.modality == "audio_tokens" else (B, 5)
+    assert got["tokens"].shape == shape and got["tokens"].dtype == torch.int32
+    assert np.array_equal(got["tokens"].numpy(), np.asarray(want["tokens"]))
+    assert np.array_equal(got["final_pos"].numpy(), np.asarray(want["final_pos"]))

@@ -9,8 +9,9 @@
   * entry points default to the card and raise without one (the build in
     every order, the corpus-sharded index, build and search, the
     distributed search and build, before any process group is asked for,
-    the serving engine's static worker and the serving CLI, the LM's cache,
-    the parameter converter and `ServeEngine`, the kNN-LM datastores);
+    the serving engine's static worker and the serving CLI, the LM's
+    parameters and cache for every family, the parameter converter and
+    `ServeEngine`, the kNN-LM datastores);
   * the launch CLI, `examples/quickstart_torch.py` and
     `examples/knn_lm_torch.py` run end to end on the CPU when asked to.
 """
@@ -111,6 +112,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "repro_torch.models.layers",
         "repro_torch.models.attention",
         "repro_torch.models.transformer",
+        "repro_torch.models.moe",
+        "repro_torch.models.ssm",
         "repro_torch.serve.engine",
         "repro_torch.retrieval",
         "repro_torch.retrieval.knn_lm",
@@ -126,6 +129,9 @@ def test_entry_points_default_to_the_card():
     cfg = GRNNDConfig(s=2, r=2, t1=1, t2=1, pairs_per_vertex=2)
     lm_cfg = reduced(get_arch("gemma3-1b"))
     lm_params = T.init_params(lm_cfg, device="cpu")
+    moe_cfg, ssm_cfg = reduced(get_arch("deepseek-moe-16b")), reduced(get_arch("zamba2-7b"))
+    audio_cfg, vision_cfg = reduced(get_arch("musicgen-large")), reduced(get_arch("internvl2-2b"))
+    audio_params = T.init_params(audio_cfg, device="cpu")
     calls = [
         lambda: build_graph(x, cfg),
         lambda: build_graph(x, cfg._replace(order="ascending")),
@@ -146,6 +152,13 @@ def test_entry_points_default_to_the_card():
         lambda: T.make_cache(lm_cfg, 1, 8),
         lambda: convert.lm_params_from_jax({}, lm_cfg),
         lambda: ServeEngine(lm_cfg, lm_params, s_max=8),
+        lambda: T.init_params(moe_cfg),
+        lambda: T.init_params(ssm_cfg),
+        lambda: T.init_params(audio_cfg),
+        lambda: T.init_params(vision_cfg),
+        lambda: T.make_cache(ssm_cfg, 1, 8),
+        lambda: convert.lm_params_from_jax({}, ssm_cfg),
+        lambda: ServeEngine(audio_cfg, audio_params, s_max=8),
         lambda: knn_lm.build_datastore(x, ids[:, 0]),
         lambda: knn_lm.DynamicDatastore.build(x, ids[:, 0], 8),
         lambda: knn_lm.DynamicDatastore.empty(4, 8),
