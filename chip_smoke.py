@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GRNND build, beam search, dynamic index, filtered
 search, host rescore tier, layout pass, sharded searches, serving layer,
-kNN-LM retrieval in an LM's decode loop, and every LM family on one NVIDIA
-card.
+kNN-LM retrieval in an LM's decode loop, every LM family, and training on
+one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, on a machine with a card
     python3 chip_smoke.py --knn-states chiprun_out/knn_states.npz   # also save 4i's witness states
@@ -145,7 +145,8 @@ Phases, each printing its own lines with seconds:
   4k. the other families from bf16 random weights, one on the card at a
      time: mamba2-130m, zamba2-7b (81 layers, one shared attention block at
      13 positions), musicgen-large (4 codebooks), internvl2-2b (256 patch
-     embeddings of width 1024 before the text) at full depth and width, and
+     embeddings of width 1024 before the text), gemma2-2b, h2o-danube-1.8b
+     and gemma3-27b (62 layers, 54 GB) at full depth and width, and
      qwen3-moe-235b-a22b at full width cut to 4 layers: 8 prompts x 128
      tokens and 32 greedy steps, (a) a second generation bitwise the first,
      (b) the decode step's logits within 5e-3 of the forward's last
@@ -158,6 +159,22 @@ Phases, each printing its own lines with seconds:
      per-token loop over 64 tokens (no drops) within 2e-3; first, phase 2's
      rows of B1's direct-read path at D = 3584 and 4096 (C = 2^17, R = P =
      24);
+  4l. training, after 4k: gemma3-1b at full width (26 layers, d_model
+     1152, vocab 262,144) from `init_params(seed=0)` through
+     `launch.train.train`: fp32 master weights, bf16 activations, remat
+     "full", CE chunks of 512, batch 8 x 512 of `data.pipeline` batches,
+     AdamW at lr 3e-4; the first and last loss (the last at least 0.3
+     below the first), tokens/s, seconds a step and the peak memory; the
+     bitwise resume (gemma3-1b cut to 8 layers at full width: k steps,
+     `checkpoint.save`, `restore` into a fresh state, m more, against k + m
+     straight, every parameter and moment bitwise, under
+     `torch.use_deterministic_algorithms`); one training step of each of the
+     ten families at reduced() width against the same step on the CPU port;
+     then 4i's datastore (1,046,528 pairs, the same config) over the
+     trained model's states of fresh sequences, with 4i's checks, its
+     recall@10 at ef 32 and memorization share printed against the floors
+     0.40 and 0.90 (an unmet floor is printed as unmet: `token_stream`
+     draws each position independently);
   5. where the time goes: torch.profiler over one propagation round, one
      hashed search (with the summed device time of `search_expand` and of
      `visited_insert`) and the same search with the dense mask, one insert
@@ -167,7 +184,7 @@ Phases, each printing its own lines with seconds:
      pools hold.
 
 Each path (4, 3b, 4b, 4c, 4d's filtered and layout paths, 4e, 4f, 4g, 4h's
-three workers and its CLI runs, 4i and 4j: the datastore's build, one
+three workers and its CLI runs, 4i, 4j and 4l: the datastore's build, one
 source-filtered retrieval and the generation; 4k's two small datastores)
 runs with the
 launch counts set to 0 just before it and read just after; every kernel it
@@ -186,18 +203,26 @@ import importlib
 import io
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# phase 4l's bitwise resume runs under torch.use_deterministic_algorithms,
+# whose cuBLAS calls need this set before the first of them
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.checkpoint import checkpoint as CKPT  # noqa: E402
+from repro_torch.configs import ALL_ARCHS, get_arch, reduced  # noqa: E402
 from repro_torch.configs.base import truncate_units  # noqa: E402
 from repro_torch.configs.grnnd_paper import SIFT1M  # noqa: E402
 from repro_torch.core import (  # noqa: E402
@@ -227,6 +252,7 @@ from repro_torch.core import distributed as D  # noqa: E402
 from repro_torch.core.labels import pack_ids  # noqa: E402
 from repro_torch.core.pools import stage_request_matrix  # noqa: E402
 from repro_torch.core.search import _table_insert, default_visited_cap  # noqa: E402
+from repro_torch.data import pipeline as PIPE  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.data.synthetic import token_stream  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -238,12 +264,15 @@ from repro_torch.kernels.topr_merge import topr_merge  # noqa: E402
 from repro_torch.kernels.visited_insert import visited_insert  # noqa: E402
 from repro_torch.launch import build_index as build_cli  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as LM  # noqa: E402
 from repro_torch.retrieval import knn_lm as KNN  # noqa: E402
 from repro_torch.serve import ann_engine as AE  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.train import optimizer as OPT  # noqa: E402
+from repro_torch.train import train_step as TS  # noqa: E402
 
 # the modules (the package exports functions under the same names)
 search_mod = importlib.import_module("repro_torch.core.search")
@@ -340,13 +369,14 @@ NCCL_RECALL_GAP = 0.02
 # over phase 4's queries, the open-loop replay at 0.7 x the closed-loop
 # capacity (`launch/serve.py:428`); the admission bound holds a whole
 # closed-loop trace, so the capacity probe sheds nothing. The request counts
-# (static 5,000 of phase 4's queries, dynamic and sharded 1,024) are cut
-# from 10,000 / 2,048 / 2,048 to keep the script within half its time limit
+# (static 2,500 of phase 4's queries, dynamic and sharded 512) are cut from
+# fig14's 10,000 / 2,048 / 2,048 to keep the script, phase 4l's training
+# included, near half its time limit
 SERVE_CFG = dict(max_batch=32, ef_menu=(32, 64), max_pending=16_384)
 SERVE_K, SERVE_EF, SERVE_LOAD = (5, 10), (32, 64), 0.7
-SERVE_STATIC_Q = 5_000
-SERVE_DYN_Q, SERVE_CHURN, SERVE_CHURN_EVERY = 1024, 16, 32  # `launch/serve.py:362-385`
-SERVE_SHARD_Q, SERVE_Q1 = 1024, 64
+SERVE_STATIC_Q = 2_500
+SERVE_DYN_Q, SERVE_CHURN, SERVE_CHURN_EVERY = 512, 16, 32  # `launch/serve.py:362-385`
+SERVE_SHARD_Q, SERVE_Q1 = 512, 64
 SERVE_RECALL_FLOOR = 0.45  # recall@k of the unfiltered requests, static and sharded
 SERVE_KERNELS = {
     "static": (
@@ -392,7 +422,10 @@ class KnnSpec:
     seed offset of its draws. `full` adds what 4i holds at D = 1152 alone:
     builds of 2^18 pairs at two seeds, the witness subset, the fp32
     datastore against the array-backed path, engine routing, and the fp32
-    kernel rows. `label` names its log lines, launch counts and rows."""
+    kernel rows. `label` names its log lines, launch counts and rows.
+    `rows` measures phase 2's rows at the model's width; `floors` reads
+    recall@10 at ef 32 and the memorization share against KNN_FLOORS (4l,
+    on trained states)."""
 
     label: str
     arch: str
@@ -401,6 +434,8 @@ class KnnSpec:
     dtype: torch.dtype
     seed: int
     full: bool
+    rows: bool = True
+    floors: bool = False
 
 
 # kNN-LM (4i): gemma3-1b at full width, fp32 master weights; 2,048 sequences
@@ -413,12 +448,22 @@ class KnnSpec:
 KNN_HELD_SEQS, KNN_SEQ_LEN = 3, 512
 KNN_4I = KnnSpec("knn", "gemma3-1b", 2048, 128, torch.float32, 40, True)
 KNN_4J = KnnSpec("knn-moe", "deepseek-moe-16b", 1024, 64, torch.bfloat16, 50, False)
+# (4l): 4i's datastore over the states of gemma3-1b as phase 4l trained it,
+# fresh sequences (another seed), 4i's key count; its rows are 4i's
+KNN_4L = KnnSpec("knn-trained", "gemma3-1b", 2048, 128, torch.float32, 90, False, rows=False,
+                 floors=True)
+# the floors of recall@10 at ef 32 on the held-out states and of the
+# memorization share (stored keys as queries: the vote's argmax is the
+# stored token), read on trained states; an unmet floor is printed as
+# unmet, not raised: `token_stream` draws each position independently, so
+# training can learn little beyond the unigram
+KNN_FLOORS = {"recall@10": 0.40, "memorization": 0.90}
 KNN_MIN_POS = 16  # held-out and memorization states: few identical prefixes here
 KNN_SOURCES, KNN_K, KNN_EF, KNN_LAM = 4, 8, 32, 0.25
 KNN_HELD, KNN_MEMO, KNN_ROUTED, KNN_FP32_N = 1_000, 4_096, 256, 1 << 18
 KNN_PROMPTS, KNN_PROMPT_LEN, KNN_NEW, KNN_INSERT_EVERY = 32, 128, 64, 8
-# no floor on recall by ids, nor on stored keys retrieving their own token
-# (they wait for trained weights, ROADMAP A.6): a randomly initialised
+# no floor on recall by ids, nor on stored keys retrieving their own token,
+# in 4i (4l reads them on trained weights, KNN_FLOORS): a randomly initialised
 # model's states lie near-isotropic on the sphere of radius sqrt(1152),
 # where neither the GRNND build nor a greedy walk finds many true neighbors
 # (recall@10 ~0.014 at ef 32 here; PERF.md, the kNN-LM findings). What the
@@ -488,14 +533,16 @@ for _spec in (KNN_4I, KNN_4J):
     ROW_PATH.update(dict.fromkeys(knn_row_names(_spec), _spec.label))
 
 # 4k: the other families at full width from bf16 random weights, one on the
-# card at a time (qwen3-moe cut to 4 of its 94 layers: 470 GB in bf16), 8
+# card at a time (qwen3-moe cut to 4 of its 94 layers: 470 GB in bf16;
+# gemma3-27b whole, 54 GB in bf16), 8
 # prompts x 128 tokens (internvl2: plus 256 patch embeddings of width 1024;
 # musicgen: 4 codebooks), 32 greedy steps. zamba2-7b's and qwen3-moe's
 # states (D = 3584, 4096) also fill a small datastore (16 sequences of 512)
 # whose fp32 build takes B1's direct-read path
 FAMILIES = (
     ("mamba2-130m", None), ("zamba2-7b", None), ("musicgen-large", None),
-    ("internvl2-2b", None), ("qwen3-moe-235b-a22b", 4),
+    ("internvl2-2b", None), ("qwen3-moe-235b-a22b", 4), ("gemma2-2b", None),
+    ("h2o-danube-1.8b", None), ("gemma3-27b", None),
 )
 FAM_PROMPTS, FAM_PROMPT_LEN, FAM_NEW = 8, 128, 32
 FAM_TOL = 5e-3  # decode against the forward's last position (the reference's test)
@@ -515,6 +562,29 @@ SSD_SHAPE, SSD_CHUNK, SSD_TOL = (2, 512, 112, 64, 64), 128, 1e-4
 # (64 tokens, capacity 16: no drops), fp32 activations over bf16 weights;
 # the reference's own tolerance for that comparison
 MOE_LOOP_T, MOE_LOOP_TOL = 64, 2e-3
+
+# 4l: training. gemma3-1b at full width (26 layers, d_model 1152, vocab
+# 262,144) from `init_params(seed=0)` through `launch.train.train`: fp32
+# master weights, bf16 activations, remat "full", CE chunks of 512, batch
+# 8 x 512 tokens of `pipeline` batches, AdamW at the CLI's lr (warmup a
+# tenth of the steps, cosine to the end); TRAIN_STEPS fits ~90 s (0.696 s
+# a step on an H100 80GB HBM3 at 700 W: the loss plateaus at ~9.1, the
+# unigram, from step ~20). The last
+# logged loss must lie TRAIN_DROP below the first (the reference's
+# `test_loss_decreases_tiny_lm` margin)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "gemma3-1b", 120, 8, 512
+TRAIN_LR, TRAIN_LOG_EVERY, TRAIN_DROP = 3e-4, 10, 0.3
+# the bitwise resume: gemma3-1b at full width cut to one pattern unit (8
+# layers), RESUME_K steps, save, restore into a fresh state, RESUME_M more,
+# against RESUME_K + RESUME_M uninterrupted steps, under
+# torch.use_deterministic_algorithms
+RESUME_UNITS, RESUME_K, RESUME_M, RESUME_BATCH, RESUME_SEQ = 1, 3, 3, 4, 256
+# one training step a family at reduced() width, fp32 activations, on the
+# card and on the CPU port from the same parameters and batch: the loss
+# within STEP_LOSS_TOL, each gradient leaf within STEP_GRAD_TOL of the
+# CPU leaf's largest magnitude (10x the tolerances the CPU tests hold the
+# port to against JAX: two devices' summation orders and transcendentals)
+STEP_BATCH, STEP_SEQ, STEP_LOSS_TOL, STEP_GRAD_TOL = 2, 64, 1e-4, 1e-3
 
 
 def log(msg: str) -> None:
@@ -2403,8 +2473,9 @@ def vote_expected(ids, dists, toks, tau: float):
     return token, per_slot.gather(1, best)[:, 0], other
 
 
-def knn_memorization(ds, params, cfg, keys, vals, pos, g, klog) -> None:
-    """Stored keys as queries. Where the search retrieves the key's own row
+def knn_memorization(ds, params, cfg, keys, vals, pos, g, klog, need_majority: bool = True) -> float:
+    """Stored keys as queries; returns the memorization share (the vote's
+    argmax is the stored token). Where the search retrieves the key's own row
     (distance 0), the vote's argmax must be the token of the largest summed
     weight (recomputed in fp64; near-ties of 1e-6 aside), and where the
     stored token holds a majority of the vote's weight (no other token can
@@ -2412,7 +2483,11 @@ def knn_memorization(ds, params, cfg, keys, vals, pos, g, klog) -> None:
     -log(1 - lam) of the pure LM's and beats it on the own-row queries.
     (Other rows within tau of the query, carrying a repeated token, can
     outvote the own row: at deepseek-moe-16b's states a sequence's nearby
-    positions lie at squared distances 1-4 of each other, tau 10.)"""
+    positions lie at squared distances 1-4 of each other, tau 10.) Without
+    `need_majority` a run in which no stored token holds a majority may
+    pass: a trained model's states of one current token lie within squared
+    distance ~0.5 of each other, tau 10, so the vote spreads over their
+    many next tokens (4l)."""
     n, dev = keys.shape[0], keys.device
     memo = torch.nonzero(pos[:n] >= KNN_MIN_POS)[:, 0]
     memo = memo[torch.randperm(memo.shape[0], generator=g, device=dev)[:KNN_MEMO]]
@@ -2448,10 +2523,13 @@ def knn_memorization(ds, params, cfg, keys, vals, pos, g, klog) -> None:
          f"the vote picks it on {acc_major:.4f} of them (floor {KNN_OWN_FLOOR}); NLL pure LM "
          f"{pure:.4f}, kNN-fused (lam {KNN_LAM}) {fused:.4f} (at most pure + {bound:.4f}); on "
          f"the own-row queries {pure_own:.4f} -> {fused_own:.4f}")
-    if n_major == 0 or agree_own < n_own or acc_major < KNN_OWN_FLOOR or (
+    if (need_majority and n_major == 0) or agree_own < n_own or (
+        n_major and acc_major < KNN_OWN_FLOOR
+    ) or (
         fused > pure + bound + 1e-4
     ) or not fused_own < pure_own:
         raise AssertionError("the vote or the fusion broke on stored keys")
+    return float(hit.float().mean())
 
 
 def knn_fp32_and_routing(ds, keys, vals, held, cfg, seed: int, dev, klog) -> None:
@@ -2490,8 +2568,9 @@ def knn_fp32_and_routing(ds, keys, vals, held, cfg, seed: int, dev, klog) -> Non
     del direct, routed
 
 
-def phase_knn(spec: KnnSpec, card: str, rows, dev, states_out=None) -> None:
-    """4i / 4j: kNN-LM at a model's full width: harvest (with the MoE
+def phase_knn(spec: KnnSpec, card: str, rows, dev, states_out=None, params=None) -> None:
+    """4i / 4j / 4l: kNN-LM at a model's full width (over `params`, else
+    random weights drawn from the seed): harvest (with the MoE
     blocks' drop shares), the datastore's build, recall and distance excess
     (kernels against plain versions and against a random graph; with
     `spec.full` also 2^18-pair builds at two seeds and the witness subset),
@@ -2499,9 +2578,11 @@ def phase_knn(spec: KnnSpec, card: str, rows, dev, states_out=None) -> None:
     array-backed path and engine routing, retrieval-fused generation
     replayed on a twin, every kernel call of one decode step's retrieval and
     one streaming insert held against its plain version, and phase 2's rows
-    at the model's width. The path's launches are counted over the
-    datastore's build, one source-filtered retrieval and the generation;
-    the checks' launches apart."""
+    at the model's width (with `spec.rows`); with `spec.floors` recall@10
+    at ef 32 and the memorization share read against KNN_FLOORS. The
+    path's launches are counted over the datastore's build, one
+    source-filtered retrieval and the generation; the checks' launches
+    apart."""
     t0 = time.perf_counter()
     cfg = get_arch(spec.arch)
     tag, seed = spec.label, SEED + spec.seed
@@ -2511,12 +2592,17 @@ def phase_knn(spec: KnnSpec, card: str, rows, dev, states_out=None) -> None:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    params, init_s = timed(lambda: LM.init_params(cfg, seed=seed, dtype=spec.dtype, device=dev))
+    if params is None:
+        params, init_s = timed(lambda: LM.init_params(cfg, seed=seed, dtype=spec.dtype,
+                                                      device=dev))
+        drawn = f"drawn in {init_s:.2f}s"
+    else:
+        drawn = "trained"
     n_params = sum(p.numel() for p in params.parameters())
     weights = "fp32 master weights" if spec.dtype == torch.float32 else "bf16 weights"
     klog(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
          f"param_count() {cfg.param_count()} ({n_params} held, {weights}, "
-         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, drawn in {init_s:.2f}s)")
+         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, {drawn})")
     g = torch.Generator(dev).manual_seed(seed + 1)
     tokens = token_stream(g, spec.seqs + KNN_HELD_SEQS, KNN_SEQ_LEN, cfg.vocab)
     with moe_drops() as drops:
@@ -2629,7 +2715,8 @@ def phase_knn(spec: KnnSpec, card: str, rows, dev, states_out=None) -> None:
 
     # memorization: stored keys as queries; where the search retrieves the
     # key's own row (distance 0), the vote must pick its stored token
-    knn_memorization(ds, params, cfg, keys, vals, pos[:n], g, klog)
+    memorized = knn_memorization(ds, params, cfg, keys, vals, pos[:n], g, klog,
+                                 need_majority=not spec.floors)
     if spec.full:
         knn_fp32_and_routing(ds, keys, vals, held, cfg, seed, dev, klog)
 
@@ -2706,7 +2793,13 @@ def phase_knn(spec: KnnSpec, card: str, rows, dev, states_out=None) -> None:
         f"err {chk.err:.3g} ({time.perf_counter() - t1:.2f}s): {chk.summary(KNN_PLAIN)}")
     knn_take(checks)
     klog(f"launches of the checks, not the path: { {k: v for k, v in sorted(checks.items()) if v} }")
-    knn_rows(idx, held, rows, spec)
+    if spec.floors:
+        for what, got in (("recall@10 at ef 32", recs[KNN_EF]), ("memorization", memorized)):
+            floor = KNN_FLOORS[what.split()[0]]
+            klog(f"floor: {what} {got:.4f} against {floor}: "
+                 f"{'met' if got >= floor else 'UNMET (recorded, not lowered)'}")
+    if spec.rows:
+        knn_rows(idx, held, rows, spec)
     path_counts(tag, path, KNN_KERNELS, rows)
     klog(f"done in {time.perf_counter() - t0:.1f}s")
 
@@ -3104,6 +3197,146 @@ def phase_families(card: str, rows, dev) -> None:
     flog(f"done in {time.perf_counter() - t0:.1f}s")
 
 
+def train_families(dev, tlog) -> None:
+    """One training step of every family at reduced() width on the card
+    against the same step on the CPU port (the one the tests hold against
+    JAX): the same parameters (drawn on the CPU, carried over), the same
+    pipeline batch; the loss within STEP_LOSS_TOL, each gradient leaf
+    within STEP_GRAD_TOL of the CPU leaf's largest magnitude; then one
+    `make_train_step` step on each side, whose losses agree as well."""
+    t0 = time.perf_counter()
+    worst = {}
+    for arch in ALL_ARCHS:
+        cfg = reduced(arch)
+        host = LM.init_params(cfg, seed=SEED + 96, device="cpu")
+        card = convert.lm_params_from_jax(convert.lm_params_to_jax(host, cfg), cfg, device=dev)
+        batch = PIPE.batch_for_step(cfg, 0, STEP_BATCH, STEP_SEQ, seed=SEED, device="cpu")
+        on_card = {k: v.to(dev) for k, v in batch.items()}
+        loss_h, _, grads_h = TS.loss_and_grads(host, cfg, batch, act_dtype=torch.float32)
+        loss_c, _, grads_c = TS.loss_and_grads(card, cfg, on_card, act_dtype=torch.float32)
+        err = max((float((grads_c[n].cpu() - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                   for n, g in grads_h.items()))
+        finite = all(bool(torch.isfinite(g).all()) for g in grads_c.values())
+        steps = []
+        for params, b in ((host, batch), (card, on_card)):
+            fn = TS.make_train_step(cfg, OPT.AdamWConfig(), act_dtype=torch.float32)
+            _, m = fn(TS.TrainState(params, OPT.init(dict(params.named_parameters()))), b)
+            steps.append(float(m["loss"]))
+        worst[cfg.name] = (abs(float(loss_c) - float(loss_h)), err)
+        if (abs(float(loss_c) - float(loss_h)) > STEP_LOSS_TOL or err > STEP_GRAD_TOL or not finite
+                or abs(steps[1] - steps[0]) > STEP_LOSS_TOL):
+            raise AssertionError(f"{cfg.name}: the card's training step differs from the CPU "
+                                 f"port's: loss {float(loss_c)} against {float(loss_h)}, train "
+                                 f"step {steps}, gradients {err:.3g} of the leaf's largest")
+    tlog(f"one training step a family at reduced() width (batch {STEP_BATCH} x {STEP_SEQ}, fp32 "
+         f"activations), the card against the CPU port: loss abs err / the largest gradient "
+         f"error over the leaves (of the leaf's largest magnitude): " + ", ".join(
+             f"{name} {a:.2g} / {b:.2g}" for name, (a, b) in worst.items())
+         + f" (tolerances {STEP_LOSS_TOL} / {STEP_GRAD_TOL}); {time.perf_counter() - t0:.1f}s")
+
+
+def train_resume(dev, tlog) -> None:
+    """RESUME_K steps, `checkpoint.save`, `restore` into a fresh state,
+    RESUME_M more, against RESUME_K + RESUME_M uninterrupted steps: every
+    parameter and moment leaf and the step bitwise equal. Under
+    `torch.use_deterministic_algorithms` (the embedding's backward
+    scatter-adds into repeated rows), scoped to this check."""
+    cfg = truncate_units(get_arch(TRAIN_ARCH), RESUME_UNITS)
+    total = RESUME_K + RESUME_M
+    step_fn = TS.make_train_step(cfg, OPT.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                                      total_steps=total),
+                                 act_dtype=torch.bfloat16)
+
+    def fresh():
+        params = LM.init_params(cfg, seed=SEED + 95, device=dev)
+        return TS.TrainState(params, OPT.init(dict(params.named_parameters())))
+
+    def run(state, lo: int, hi: int):
+        for step in range(lo, hi):
+            batch = PIPE.batch_for_step(cfg, step, RESUME_BATCH, RESUME_SEQ, device=dev)
+            state, _ = step_fn(state, batch)
+        return state
+
+    ckpt = Path(__file__).resolve().parent / "build" / "train_resume"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight, run_s = timed(lambda: run(fresh(), 0, total))
+        state = run(fresh(), 0, RESUME_K)
+        like = convert.train_state_to_jax(state, cfg)
+        _, save_s = timed(lambda: CKPT.save(ckpt, RESUME_K, like))
+        del state
+        tree, restore_s = timed(lambda: CKPT.restore(ckpt, CKPT.latest_step(ckpt), like))
+        resumed = run(convert.train_state_from_jax(tree, cfg, device=dev), RESUME_K, total)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    pairs = list(zip(straight.params.parameters(), resumed.params.parameters()))
+    for name in straight.opt.mu:
+        pairs += [(straight.opt.mu[name], resumed.opt.mu[name]),
+                  (straight.opt.nu[name], resumed.opt.nu[name])]
+    same = sum(torch.equal(a, b) for a, b in pairs)
+    tlog(f"resume: {cfg.name} ({cfg.n_layers} layers at full width, batch {RESUME_BATCH} x "
+         f"{RESUME_SEQ}, bf16 activations, deterministic algorithms): {RESUME_K} steps, save "
+         f"({sum(1 for _ in CKPT.leaves_with_paths(like))} leaves, "
+         f"{save_s:.2f}s), restore into a fresh state ({restore_s:.2f}s), {RESUME_M} more, "
+         f"against {total} straight ({run_s:.2f}s): {same} of {len(pairs)} parameter and moment "
+         f"leaves bitwise equal, step {int(resumed.opt.step)} / {int(straight.opt.step)}")
+    if same != len(pairs) or int(resumed.opt.step) != int(straight.opt.step):
+        raise AssertionError("resumed training differs from uninterrupted training")
+
+
+def phase_train(card: str, dev):
+    """4l: gemma3-1b trained at full width through `launch.train.train`
+    (TRAIN_*: first and last loss, tokens/s, seconds a step, peak memory),
+    then one forward + backward under the profiler; the bitwise resume; one
+    training step a family against the CPU port.
+    Returns the trained parameters (frozen)."""
+    t0 = time.perf_counter()
+
+    def tlog(msg: str) -> None:
+        log(f"[train] {msg} ({card})")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (state, hist), secs = timed(lambda: train_cli.train(
+        TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, full=True, lr=TRAIN_LR,
+        log_every=TRAIN_LOG_EVERY, act_dtype=torch.bfloat16, device=dev))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    cfg = get_arch(TRAIN_ARCH)
+    first, second, last = hist[0], hist[1], hist[-1]
+    step_s = (last["wall_s"] - second["wall_s"]) / (last["step"] - second["step"])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(p.numel() for p in state.params.parameters())
+    tlog(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+         f"{n_params} parameters (fp32 master weights, AdamW moments fp32), bf16 activations, "
+         f"remat full, CE chunks of 512: {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+         f"in {secs:.2f}s with the init ({TRAIN_STEPS * tokens / secs:.0f} tokens/s); steps "
+         f"{second['step']}-{last['step']} {step_s:.4f}s a step, {tokens / step_s:.0f} tokens/s; "
+         f"loss {first['loss']:.4f} at step {first['step']} -> {last['loss']:.4f} at step "
+         f"{last['step']} (drop {first['loss'] - last['loss']:.4f}, at least {TRAIN_DROP}); "
+         f"grad norm {first['grad_norm']:.3f} -> {last['grad_norm']:.3f}; peak device memory "
+         f"{peak:.2f} GiB")
+    if not last["loss"] < first["loss"] - TRAIN_DROP or not math.isfinite(last["loss"]):
+        raise AssertionError(f"training did not lower the loss by {TRAIN_DROP}: {first['loss']} "
+                             f"-> {last['loss']}")
+    params = state.params
+    del state, hist
+    # where a step's time goes: one forward + backward of the trained model
+    # on the next step's batch (the AdamW update not included)
+    batch = PIPE.batch_for_step(cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+    profiled(f"one forward + backward of {cfg.name}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, "
+             "remat full", lambda: TS.loss_and_grads(params, cfg, batch, act_dtype=torch.bfloat16),
+             top=12)
+    del batch
+    torch.cuda.empty_cache()
+    train_resume(dev, tlog)
+    torch.cuda.empty_cache()
+    train_families(dev, tlog)
+    tlog(f"done in {time.perf_counter() - t0:.1f}s")
+    return params
+
+
 # ---------------------------------------------------------------------------
 # phase 5: where the time goes (after the main path's counts are read)
 # ---------------------------------------------------------------------------
@@ -3246,6 +3479,9 @@ def main() -> None:
     phase_knn(KNN_4J, card, rows, dev)
     torch.cuda.empty_cache()
     phase_families(card, rows, dev)
+    torch.cuda.empty_cache()
+    trained = phase_train(card, dev)
+    phase_knn(KNN_4L, card, rows, dev, params=trained)
     log(f"[total] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     kind = torch.cuda.get_device_name(0)

@@ -1,0 +1,1 @@
+"""Step-tagged checkpoints in the JAX package's on-disk layout."""

@@ -21,6 +21,8 @@ from repro_torch.core.vecstore import HostTier, VectorStore
 from repro_torch.models import transformer as T
 from repro_torch.retrieval.knn_lm import DynamicDatastore, KNNDatastore
 from repro_torch.serve.ann_engine import DynamicWorker, ShardedWorker, StaticWorker
+from repro_torch.train.optimizer import AdamWState
+from repro_torch.train.train_step import TrainState
 
 
 def from_jax(pool_ids, pool_dists, x, device="cuda"):
@@ -307,6 +309,86 @@ def lm_params_from_jax(params, cfg, device="cuda") -> T.LMParams:
         codebook_head=top("codebook_head"),
         vision_proj=top("vision_proj"),
     )
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        raise ValueError("bf16 leaves have no numpy dtype here: keep fp32 master weights")
+    return t.detach().cpu().numpy()
+
+
+def _nested(named: dict, prefix: str) -> dict:
+    """The entries of `named` under `prefix` as a nested dict of tensors,
+    split at the dots of their names."""
+    out: dict = {}
+    for name, t in named.items():
+        if name.startswith(prefix):
+            *path, leaf = name[len(prefix) :].split(".")
+            node = out
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = t
+    return out
+
+
+def _stacked(trees: list[dict], stack: bool = True) -> dict:
+    """Nested dicts of tensors of one structure as one of numpy arrays,
+    each leaf stacked over the list on a new leading axis (with `stack`),
+    or the one tree's leaves as they are."""
+    def leaf(ts):
+        return np.stack([_host(t) for t in ts]) if stack else _host(ts[0])
+
+    return {name: _stacked([t[name] for t in trees], stack) if isinstance(v, dict)
+            else leaf([t[name] for t in trees]) for name, v in trees[0].items()}
+
+
+def lm_params_to_jax(params, cfg) -> dict:
+    """The inverse of `lm_params_from_jax`: the port's `LMParams`, or any
+    dict keyed by its parameter names (gradients, AdamW moments), as a
+    numpy tree in the reference's structure (`models/transformer.init_params`):
+    each segment position's layers stacked over its repeats, a
+    `shared_attn` position's entry empty, no `lm_head` where the embedding
+    is tied. Leaves keep their dtype; bf16 raises (numpy has no bf16)."""
+    named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) else params
+    tree = {name: _host(named[name])
+            for name in ("embed", "lm_head", "codebook_embed", "codebook_head", "final_norm")
+            if name in named}
+    for name in ("vision_proj", "shared_attn"):
+        sub = _nested(named, name + ".")
+        if sub:
+            tree[name] = _stacked([sub], stack=False)
+    tree["segments"] = [
+        [_stacked([_nested(named, f"layers.{layer}.") for layer in reps]) for reps in seg_map]
+        for seg_map in T.segment_layers(cfg)
+    ]
+    return tree
+
+
+def train_state_to_jax(state: TrainState, cfg) -> TrainState:
+    """The port's `TrainState` as the reference's (a `TrainState` of numpy
+    trees: `lm_params_to_jax` of the parameters and both moments, the step
+    an int32 scalar), the tree a checkpoint holds."""
+    opt = state.opt
+    return TrainState(
+        lm_params_to_jax(state.params, cfg),
+        AdamWState(np.asarray(int(opt.step), dtype=np.int32), lm_params_to_jax(opt.mu, cfg),
+                   lm_params_to_jax(opt.nu, cfg)),
+    )
+
+
+def train_state_from_jax(state, cfg, device="cuda") -> TrainState:
+    """The reference's `TrainState` (or `train_state_to_jax`'s, or a
+    restored checkpoint's: anything with `.params` and `.opt.{step, mu,
+    nu}`, leaves as numpy arrays) as the port's, on `device`."""
+    dev = _device.resolve(device)
+
+    def named(tree) -> dict:
+        return {name: p.detach() for name, p in
+                lm_params_from_jax(tree, cfg, device=dev).named_parameters()}
+
+    step = torch.tensor(int(np.asarray(state.opt.step)), dtype=torch.int32, device=dev)
+    return TrainState(lm_params_from_jax(state.params, cfg, device=dev),
+                      AdamWState(step, named(state.opt.mu), named(state.opt.nu)))
 
 
 def knn_datastore_from_jax(store, device="cuda") -> KNNDatastore:

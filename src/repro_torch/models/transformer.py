@@ -15,19 +15,25 @@ applied at every `shared_attn` position, whose own layer entry is empty;
 each occurrence keeps its own KV cache. The audio frontend sums the
 codebook embeddings of a (B, S, ncb) token grid and reads one head a
 codebook; the vision frontend projects precomputed patch embeddings into
-the positions before the text. `forward` runs without remat, and without
-the FSDP gather hints of the reference (ROADMAP A.7).
+the positions before the text. `forward` remats each layer under
+`torch.utils.checkpoint` while gradients are on (the reference remats each
+repeat of a segment), and runs without the FSDP gather hints of the
+reference (ROADMAP A.7).
 
 Every entry point takes `params`, an `LMParams`, and the `ArchConfig`, as
 the reference takes its parameter tree. Parameters are made with
-`requires_grad=False` (this slice serves; training is ROADMAP A.6).
+`requires_grad=False`, so serving keeps no graph; the training code
+(`train/train_step.py`) turns them on with `params.requires_grad_(True)`.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
@@ -316,19 +322,47 @@ def lm_logits(params: LMParams, cfg: ArchConfig, x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# the products whose outputs remat_policy="dots" saves (the reference's
+# `checkpoint_dots`); everything else is recomputed in the backward
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default)
+
+
+def _remat_context(policy: str):
+    if policy == "full":
+        return _ckpt.noop_context_fn
+    if policy == "dots":
+        return functools.partial(_ckpt.create_selective_checkpoint_contexts, list(_DOTS))
+    raise ValueError(f"remat_policy must be 'full' or 'dots', not {policy!r}")
+
+
 def forward(params: LMParams, cfg: ArchConfig, batch, *, act_dtype=torch.bfloat16,
-            return_cache: bool = False, return_hidden: bool = False):
+            return_cache: bool = False, remat: bool = True, return_hidden: bool = False,
+            remat_policy: str = "full"):
     """Full-sequence forward. Returns (logits | hidden, aux[, caches]).
 
     `hidden` is the post-`final_norm` state (B, S, D); `aux` the fp32 sum of
     the MoE layers' `moe_lb_loss` (zero without MoE); `caches` one entry a
-    layer: {"k", "v"} of (B, S, K, Dh), or an SSM layer's {"h", "conv"}."""
+    layer: {"k", "v"} of (B, S, K, Dh), or an SSM layer's {"h", "conv"}.
+
+    With `remat` and gradients on, each layer runs under
+    `torch.utils.checkpoint` (non-reentrant): `remat_policy="full"` keeps
+    only its input and recomputes the rest in the backward, `"dots"` also
+    keeps the products' outputs. Without gradients there is nothing to
+    remat, and the layers run as they are."""
+    context_fn = _remat_context(remat_policy)
+    remat = remat and torch.is_grad_enabled()
     x, positions = embed_inputs(params, cfg, batch, act_dtype)
     bpos = positions[None, :].expand(x.shape[0], -1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for lp, (kind, mlp_kind) in zip(params.layers, layer_descs(cfg)):
-        x, entry, layer_aux = _apply_layer(lp, params.shared_attn, cfg, kind, mlp_kind, x, bpos)
+        args = (lp, params.shared_attn, cfg, kind, mlp_kind, x, bpos)
+        if remat:
+            x, entry, layer_aux = _ckpt.checkpoint(_apply_layer, *args, use_reentrant=False,
+                                                   context_fn=context_fn)
+        else:
+            x, entry, layer_aux = _apply_layer(*args)
         if layer_aux is not None:
             aux = aux + layer_aux["moe_lb_loss"]
         if return_cache:
@@ -370,7 +404,7 @@ def prefill(params: LMParams, cfg: ArchConfig, batch, s_max: int | None = None,
     position's logits are computed; the KV caches are zero-padded to
     `s_max` slots (an SSM layer's state has no length)."""
     hidden, _, caches = forward(params, cfg, batch, act_dtype=act_dtype, return_cache=True,
-                                return_hidden=True)
+                                remat=False, return_hidden=True)
     logits = lm_logits(params, cfg, hidden[:, -1:])
     s = hidden.shape[1]
     if s_max is not None and s_max > s:

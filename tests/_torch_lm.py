@@ -1,7 +1,8 @@
 """Helpers of the port's LM tests: one reduced config's parameters on both
 sides (the reference's `init_params`, carried across with
 `convert.lm_params_from_jax`), batches of every modality from a numpy seed,
-and a prefill followed by greedy decode steps through both packages."""
+a prefill followed by greedy decode steps through both packages, and the
+training loss and gradients through both."""
 
 import jax
 import jax.numpy as jnp
@@ -11,9 +12,11 @@ import torch
 from repro.configs import get_arch as jget_arch
 from repro.configs import reduced as jreduced
 from repro.models import transformer as JT
+from repro.train import train_step as JTS
 from repro_torch import convert
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models import transformer as T
+from repro_torch.train import train_step as TS
 
 RTOL, ATOL = 1e-4, 1e-4
 
@@ -141,3 +144,38 @@ def check_decode_matches_forward(name: str, seed: int = 9):
     dec, _ = T.decode_step(params, cfg, caches, batch["tokens"][:, -1], pos,
                            act_dtype=torch.float32)
     close(dec, full[:, -1], 5e-3, 5e-3)
+
+
+GRAD_LOSS_TOL, GRAD_TOL, GRAD_CE_CHUNK = 1e-5, 1e-4, 8
+
+
+def check_loss_and_grads(name: str, capacity=None):
+    """The port's loss, CE, MoE aux and every gradient leaf against
+    `jax.value_and_grad(repro.train.train_step.loss_fn)` on the same
+    parameters and batch (reduced config, fp32, CE chunks of 8): the loss
+    terms within GRAD_LOSS_TOL absolute, each leaf (in the reference's
+    structure and flatten order, by `convert.lm_params_to_jax`) within
+    GRAD_TOL of the largest magnitude of the reference's leaf."""
+    overrides = {} if capacity is None else {"moe_capacity_factor": capacity}
+    cfg, params, jcfg, jparams, batch = make_model(name, b=2, s=24, **overrides)
+    vg = jax.jit(jax.value_and_grad(
+        lambda p, b: JTS.loss_fn(p, jcfg, b, act_dtype=jnp.float32, ce_chunk=GRAD_CE_CHUNK),
+        has_aux=True))
+    (jloss, jaux), jgrads = vg(jparams, jbatch(batch))
+    loss, aux, grads = TS.loss_and_grads(params, cfg, tbatch(batch), act_dtype=torch.float32,
+                                         ce_chunk=GRAD_CE_CHUNK)
+
+    assert abs(float(loss) - float(jloss)) <= GRAD_LOSS_TOL
+    assert abs(float(aux["ce"]) - float(jaux["ce"])) <= GRAD_LOSS_TOL
+    assert abs(float(aux["moe_aux"]) - float(jaux["moe_aux"])) <= GRAD_LOSS_TOL
+    if cfg.n_experts:
+        assert float(jaux["moe_aux"]) > 0
+    want = jax.tree_util.tree_leaves_with_path(jax.tree.map(np.asarray, jgrads))
+    got = jax.tree_util.tree_leaves_with_path(convert.lm_params_to_jax(grads, cfg))
+    keystr = jax.tree_util.keystr
+    assert [keystr(p) for p, _ in got] == [keystr(p) for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert g.shape == w.shape and np.isfinite(g).all(), keystr(path)
+        scale = float(np.abs(w).max())
+        err = float(np.abs(g - w).max())
+        assert err <= GRAD_TOL * scale + 1e-12, (keystr(path), err, scale)

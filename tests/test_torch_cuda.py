@@ -36,7 +36,11 @@ its staged path at D = 128 and 1152 at every storage rung, and within
 tolerance of the plain version at D = 3584 and 4096 (zamba2-7b's and
 qwen3-moe's widths, where only the direct path runs); the MoE block bitwise
 across two calls at T = 4,096 tokens (no float atomics in its combine) and
-the chunked SSD scan against the recurrence at zamba2's head shapes.
+the chunked SSD scan against the recurrence at zamba2's head shapes; one
+training step of each of the ten families at reduced() width against the
+same step on the CPU port (loss within 1e-4, gradients within 1e-3 of each
+leaf's largest magnitude), and resumed training bitwise uninterrupted
+training under `torch.use_deterministic_algorithms`.
 Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
 summation order; the dequant itself is bitwise the plain version's);
 pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition cancellation);
@@ -873,3 +877,62 @@ def test_fp32_knn_datastore_on_the_card_is_the_array_path(dev):
         assert torch.equal(got, want)
         ds.attach_engine()
         assert torch.equal(ds.knn_log_probs(q), got)
+
+
+# ---------------------------------------------------------------------------
+# training (no kernel of its own: the LM stack's autograd on the card)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("gemma2-2b", "h2o-danube-1.8b", "gemma3-27b", "gemma3-1b", "deepseek-moe-16b",
+               "qwen3-moe-235b-a22b", "musicgen-large", "mamba2-130m", "zamba2-7b",
+               "internvl2-2b")
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+def test_training_step_on_the_card_matches_the_cpu_port(dev, name):
+    """One training step a family at reduced() width, fp32 activations: the
+    loss within 1e-4 and each gradient leaf within 1e-3 of the largest
+    magnitude of the CPU port's leaf (10x the CPU tests' tolerances
+    against JAX: two devices' summation orders and transcendentals), from
+    the same parameters and pipeline batch."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import pipeline as PIPE
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+
+    cfg = reduced(get_arch(name))
+    host = T.init_params(cfg, seed=5, device="cpu")
+    card = convert.lm_params_from_jax(convert.lm_params_to_jax(host, cfg), cfg, device=dev)
+    batch = PIPE.batch_for_step(cfg, 0, 2, 64, device="cpu")
+    loss_h, _, grads_h = TS.loss_and_grads(host, cfg, batch, act_dtype=torch.float32)
+    loss_c, _, grads_c = TS.loss_and_grads(card, cfg, {k: v.to(dev) for k, v in batch.items()},
+                                           act_dtype=torch.float32)
+    assert abs(float(loss_c) - float(loss_h)) <= 1e-4
+    for n, g in grads_h.items():
+        assert bool(torch.isfinite(grads_c[n]).all()), n
+        scale = float(g.abs().max())
+        assert float((grads_c[n].cpu() - g).abs().max()) <= 1e-3 * scale + 1e-12, n
+
+
+def test_resumed_training_on_the_card_is_bitwise(dev, tmp_path, monkeypatch):
+    """gemma3-1b reduced, 6 steps straight against 3 steps, a checkpoint,
+    a restore into a fresh state and 3 more, under
+    `torch.use_deterministic_algorithms` (the embedding's backward
+    scatter-adds into repeated Zipf rows): every parameter bitwise."""
+    from repro_torch.launch import train as LT
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        kw = dict(steps=6, batch=4, seq=64, save_every=3, act_dtype=torch.bfloat16, device=dev)
+        a, _ = LT.train("gemma3-1b", ckpt_dir=str(tmp_path / "a"), **kw)
+        LT.train("gemma3-1b", stop_at=3, ckpt_dir=str(tmp_path / "b"), **kw)
+        b, _ = LT.train("gemma3-1b", ckpt_dir=str(tmp_path / "b"), **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert int(a.opt.step) == int(b.opt.step) == 6
+    for (n, x), (_, y) in zip(a.params.named_parameters(), b.params.named_parameters()):
+        assert torch.equal(x, y), n
+    for n, x in a.opt.mu.items():
+        assert torch.equal(x, b.opt.mu[n]) and torch.equal(a.opt.nu[n], b.opt.nu[n]), n
