@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GRNND build, beam search, dynamic index, filtered
 search, host rescore tier, layout pass, sharded searches, serving layer,
-kNN-LM retrieval in an LM's decode loop, every LM family, and training on
-one NVIDIA card.
+kNN-LM retrieval in an LM's decode loop, every LM family, training, and the
+multi-rank training pieces (gradient compression, the fault-tolerance
+supervisor, the expert-parallel MoE) on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, on a machine with a card
     python3 chip_smoke.py --knn-states chiprun_out/knn_states.npz   # also save 4i's witness states
@@ -175,6 +176,21 @@ Phases, each printing its own lines with seconds:
      recall@10 at ef 32 and memorization share printed against the floors
      0.40 and 0.90 (an unmet floor is printed as unmet: `token_stream`
      draws each position independently);
+  4m. the multi-rank training pieces, after 4l, on an NCCL group of world
+     size 1 (`launch/_group.join`): one gradient of 4l's trained gemma3-1b
+     (batch 8 x 512) through `compressed_psum_mean`, q and the scales of a
+     few leaves bitwise the CPU port's, every leaf bitwise its dequantized
+     int8 (within half a quantization step), its time, the bytes it
+     all-reduces and their share of a 4l step, one `ErrorFeedback.compress`;
+     on 4l's resume model under deterministic algorithms, 3 steps of
+     `make_train_step(compress_pod_grads=True)` bitwise 3 plain steps on the
+     quantized gradients, the loss lower after 20, and `TrainingSupervisor`
+     over 4 simulated hosts (a checkpoint every 5 steps under build/, a host
+     lost before step 7) bitwise 10 straight steps, with its restart's cost;
+     deepseek-moe-16b's MoE layer (8 x 512 tokens, fp32, capacity 16) under
+     `use_hints(make_debug_mesh((1, 1)))` against the dense path: output
+     within 1e-5 of its largest magnitude, every gradient of sum(y^2) within
+     1e-3, no drops, both paths' times and peak memory;
   5. where the time goes: torch.profiler over one propagation round, one
      hashed search (with the summed device time of `search_expand` and of
      `visited_insert`) and the same search with the dense mask, one insert
@@ -216,7 +232,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-import torch.nn.functional as F
+import torch.distributed as dist  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -255,6 +272,9 @@ from repro_torch.core.search import _table_insert, default_visited_cap  # noqa: 
 from repro_torch.data import pipeline as PIPE  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.data.synthetic import token_stream  # noqa: E402
+from repro_torch.distributed import compression as COMP  # noqa: E402
+from repro_torch.distributed import fault_tolerance as FT  # noqa: E402
+from repro_torch.distributed.hints import use_hints  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.gather_l2 import gather_sqdist  # noqa: E402
 from repro_torch.kernels.pairwise_l2 import pairwise_sqdist, rowwise_sqdist  # noqa: E402
@@ -262,9 +282,11 @@ from repro_torch.kernels.rng_round import rng_round  # noqa: E402
 from repro_torch.kernels.search_expand import search_expand  # noqa: E402
 from repro_torch.kernels.topr_merge import topr_merge  # noqa: E402
 from repro_torch.kernels.visited_insert import visited_insert  # noqa: E402
+from repro_torch.launch import _group  # noqa: E402
 from repro_torch.launch import build_index as build_cli  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as LM  # noqa: E402
@@ -585,6 +607,28 @@ RESUME_UNITS, RESUME_K, RESUME_M, RESUME_BATCH, RESUME_SEQ = 1, 3, 3, 4, 256
 # CPU leaf's largest magnitude (10x the tolerances the CPU tests hold the
 # port to against JAX: two devices' summation orders and transcendentals)
 STEP_BATCH, STEP_SEQ, STEP_LOSS_TOL, STEP_GRAD_TOL = 2, 64, 1e-4, 1e-3
+
+# 4m: the multi-rank training pieces at world size 1 on NCCL. Compression:
+# one gradient of 4l's trained gemma3-1b (batch TRAIN_BATCH x TRAIN_SEQ)
+# through `compressed_psum_mean`; q and the scales of DIST_LEAVES bitwise
+# the CPU port's. The compressed train step and the supervisor run 4l's
+# resume model (RESUME_UNITS, RESUME_BATCH x RESUME_SEQ) under deterministic
+# algorithms: DIST_K compressed steps bitwise DIST_K plain steps on the
+# quantized gradients, then DIST_STEPS in all; FT_STEPS supervised steps
+# (FT_HOSTS simulated hosts, a checkpoint every FT_SAVE_EVERY, one host lost
+# before step FT_KILL_AT) bitwise FT_STEPS straight ones
+DIST_LEAVES = ("embed", "layers.0.attn.wq", "layers.25.mlp.wo", "final_norm")
+DIST_K, DIST_STEPS = 3, 20
+FT_HOSTS, FT_STEPS, FT_SAVE_EVERY, FT_KILL_AT = 4, 10, 5, 7
+# the expert-parallel MoE layer: deepseek-moe-16b's (d_model 2048, 64 routed
+# experts top-6, 2 shared, d_expert 1408) at capacity factor 16 (no drops),
+# EP_BATCH x EP_SEQ tokens in fp32, fp32 weights, under
+# `use_hints(make_debug_mesh((1, 1)))` against the dense path: the output
+# within EP_OUT_TOL of the largest output magnitude, each gradient of
+# sum(y^2) within EP_GRAD_TOL (of the leaf's largest magnitude where that
+# exceeds 1), the reference test's tolerances
+EP_ARCH, EP_BATCH, EP_SEQ, EP_CAPACITY, EP_OUT_TOL, EP_GRAD_TOL = (
+    "deepseek-moe-16b", 8, 512, 16.0, 1e-5, 1e-3)
 
 
 def log(msg: str) -> None:
@@ -1762,8 +1806,6 @@ def phase_corpus(x, queries, cfg, pool, truth, res64, filtered, idx, rows) -> No
 def phase_nccl(cfg, parity) -> None:
     """4g: the torch.distributed paths at world size 1 on NCCL, on phase 3's
     data: each bitwise its single-process counterpart."""
-    import torch.distributed as dist
-
     t0 = time.perf_counter()
     x, queries, truth, parity_recall = parity
     dev = x.device
@@ -3291,7 +3333,7 @@ def phase_train(card: str, dev):
     (TRAIN_*: first and last loss, tokens/s, seconds a step, peak memory),
     then one forward + backward under the profiler; the bitwise resume; one
     training step a family against the CPU port.
-    Returns the trained parameters (frozen)."""
+    Returns the trained parameters (frozen) and the seconds a step."""
     t0 = time.perf_counter()
 
     def tlog(msg: str) -> None:
@@ -3334,7 +3376,296 @@ def phase_train(card: str, dev):
     torch.cuda.empty_cache()
     train_families(dev, tlog)
     tlog(f"done in {time.perf_counter() - t0:.1f}s")
-    return params
+    return params, step_s
+
+
+# ---------------------------------------------------------------------------
+# phase 4m: compression, fault tolerance and expert parallelism at world size 1
+# ---------------------------------------------------------------------------
+
+
+def dist_compression(params, group, step_s: float, dlog) -> None:
+    """One gradient of the trained gemma3-1b through `compressed_psum_mean`
+    over the group: q and the scales of DIST_LEAVES bitwise the CPU port's;
+    at world size 1 the mean is the dequantized gradient, bitwise, within
+    half a quantization step of the gradient; its time, the bytes it
+    all-reduces and their share of a 4l step; one `ErrorFeedback.compress`."""
+    cfg = get_arch(TRAIN_ARCH)
+    dev = params.device
+    batch = PIPE.batch_for_step(cfg, TRAIN_STEPS + 1, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+    _, _, grads = TS.loss_and_grads(params, cfg, batch, act_dtype=torch.bfloat16)
+    del batch
+    for name in DIST_LEAVES:
+        q, sc = COMP.quantize_int8(grads[name])
+        qc, scc = COMP.quantize_int8(grads[name].cpu())
+        if not (torch.equal(q.cpu(), qc) and torch.equal(sc.cpu(), scc)):
+            raise AssertionError(f"quantize_int8 of {name} differs between the card and the CPU")
+    n = sum(g.numel() for g in grads.values())
+    blocks = sum(-(-g.numel() // 256) for g in grads.values())
+    scale_bytes, q_bytes = blocks * 4, blocks * 256 * 4
+
+    def compress_all():
+        return {name: COMP.compressed_psum_mean(g, group) for name, g in grads.items()}
+
+    secs = [timed(compress_all)[1] for _ in range(3)]
+    profiled("compressed_psum_mean of the whole gradient", compress_all)
+    mean = compress_all()
+    worst, exact = 0.0, 0
+    for name, g in grads.items():
+        q, sc = COMP.quantize_int8(g)
+        exact += torch.equal(mean[name], COMP.dequantize_int8(q, sc, g.shape))
+        err = (COMP._blocks(mean[name], 256) - COMP._blocks(g, 256)).abs() / sc
+        worst = max(worst, float(err.max()))
+    del mean
+    if exact != len(grads) or worst > 0.5 + 1e-4:
+        raise AssertionError(f"compressed mean: {exact} of {len(grads)} leaves the dequantized "
+                             f"gradient, worst error {worst} of a quantization step")
+    dlog(f"compressed_psum_mean of {cfg.name}'s gradient ({n} fp32 elements, {len(grads)} "
+         f"leaves, batch {TRAIN_BATCH} x {TRAIN_SEQ}) on {dist.get_backend(group)} at world size "
+         f"{dist.get_world_size(group)}: " + " / ".join(f"{v * 1e3:.1f}" for v in secs)
+         + f" ms (three runs); all-reduced {q_bytes} B of int32 q + {scale_bytes} B of scales = "
+         f"{(q_bytes + scale_bytes) / (4 * n):.4f}x the fp32 gradient; "
+         f"{min(secs) / step_s:.1%} of a 4l step ({step_s:.4f} s); q and scales of "
+         f"{', '.join(DIST_LEAVES)} bitwise the CPU port's; every leaf bitwise its dequantized "
+         f"int8, worst error {worst:.4f} of a quantization step (<= 0.5)")
+    resid = COMP.ErrorFeedback.init(grads)
+    (sent, resid), ef_s = timed(lambda: COMP.ErrorFeedback.compress(grads, resid))
+    gmax = max(float(g.abs().max()) for g in grads.values())
+    rmax = max(float(r.abs().max()) for r in resid.values())
+    dlog(f"ErrorFeedback.compress of the same gradient: {ef_s * 1e3:.1f} ms, residual largest "
+         f"magnitude {rmax:.4g} (the gradient's largest {gmax:.4g}, / 254 = {gmax / 254:.4g})")
+    if rmax > gmax / 254 * (1 + 1e-4):
+        raise AssertionError("an ErrorFeedback residual exceeds half a quantization step")
+
+
+def _resume_model():
+    cfg = truncate_units(get_arch(TRAIN_ARCH), RESUME_UNITS)
+
+    def fresh(dev, seed: int):
+        params = LM.init_params(cfg, seed=seed, device=dev)
+        return TS.TrainState(params, OPT.init(dict(params.named_parameters())))
+
+    def batch(step: int, dev):
+        return PIPE.batch_for_step(cfg, step, RESUME_BATCH, RESUME_SEQ, device=dev)
+
+    return cfg, fresh, batch
+
+
+def _same_state(a, b) -> tuple[int, int]:
+    """(leaves bitwise equal, leaves) over the parameters, both moments and
+    the step of two train states."""
+    pairs = list(zip(a.params.parameters(), b.params.parameters()))
+    for name in a.opt.mu:
+        pairs += [(a.opt.mu[name], b.opt.mu[name]), (a.opt.nu[name], b.opt.nu[name])]
+    pairs.append((a.opt.step, b.opt.step))
+    return sum(torch.equal(x, y) for x, y in pairs), len(pairs)
+
+
+def dist_train_step(group, dev, dlog) -> None:
+    """DIST_K steps of `make_train_step(compress_pod_grads=True,
+    pod_axis=group)` bitwise DIST_K plain steps whose gradients are
+    replaced by the same formula (at world size 1: dequantize(quantize(g)));
+    then on to DIST_STEPS compressed steps, whose last loss must lie below
+    the first."""
+    cfg, fresh, batch = _resume_model()
+    opt_cfg = OPT.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=DIST_STEPS)
+    compressed = TS.make_train_step(cfg, opt_cfg, act_dtype=torch.bfloat16,
+                                    compress_pod_grads=True, pod_axis=group)
+
+    def plain(state, b):
+        loss, _, grads = TS.loss_and_grads(state.params, cfg, b, act_dtype=torch.bfloat16)
+        grads = {name: COMP.dequantize_int8(*COMP.quantize_int8(g), g.shape)
+                 for name, g in grads.items()}
+        _, opt, _ = OPT.apply(opt_cfg, state.opt, dict(state.params.named_parameters()), grads)
+        return TS.TrainState(state.params, opt), {"loss": loss}
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs, losses = [], []
+        for fn in (compressed, plain):
+            state = fresh(dev, SEED + 97)
+            for step in range(DIST_K):
+                state, m = fn(state, batch(step, dev))
+                if fn is compressed:
+                    losses.append(float(m["loss"]))
+            runs.append(state)
+        same, total = _same_state(*runs)
+        state = runs[0]
+        del runs
+        t0 = time.perf_counter()
+        for step in range(DIST_K, DIST_STEPS):
+            state, m = compressed(state, batch(step, dev))
+            losses.append(float(m["loss"]))
+        steps_s = (time.perf_counter() - t0) / (DIST_STEPS - DIST_K)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    dlog(f"compressed train step, {cfg.name} ({cfg.n_layers} layers at full width, batch "
+         f"{RESUME_BATCH} x {RESUME_SEQ}, bf16 activations, deterministic algorithms): {DIST_K} "
+         f"steps against {DIST_K} plain steps on the quantized gradients: {same} of {total} "
+         f"parameter, moment and step leaves bitwise equal; steps {DIST_K + 1}-{DIST_STEPS} "
+         f"{steps_s:.4f} s a step, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if same != total:
+        raise AssertionError("the compressed train step differs from the plain one")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"compressed training did not lower the loss: {losses}")
+
+
+def dist_supervisor(dev, dlog) -> None:
+    """`TrainingSupervisor` over the real train step: FT_STEPS steps, a
+    checkpoint every FT_SAVE_EVERY under build/, a host lost before step
+    FT_KILL_AT, the restart restoring the last checkpoint; the final state
+    bitwise FT_STEPS straight steps; the restart's cost."""
+    cfg, fresh, batch = _resume_model()
+    step_fn = TS.make_train_step(cfg, OPT.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                                      total_steps=FT_STEPS),
+                                 act_dtype=torch.bfloat16)
+    ckpt = Path(__file__).resolve().parent / "build" / "dist_ft"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    clock = [0.0]
+    coord = FT.Coordinator(FT_HOSTS, heartbeat_timeout=5.0, now=lambda: clock[0])
+    spent = {"save": 0.0, "restore": 0.0, "replayed": 0}
+    done = set()
+
+    def step_and_beat(state, step):
+        for h in coord.alive_hosts():
+            coord.heartbeat(h)
+        spent["replayed"] += step in done
+        done.add(step)
+        return step_fn(state, batch(step, dev))[0]
+
+    def save_fn(state, step):
+        _, s = timed(lambda: CKPT.save(ckpt, step, convert.train_state_to_jax(state, cfg)))
+        spent["save"] += s
+
+    like = {}
+
+    def restore_fn():
+        def restore():
+            step = CKPT.latest_step(ckpt)
+            tree = CKPT.restore(ckpt, step, like["tree"])
+            return convert.train_state_from_jax(tree, cfg, device=dev), step
+
+        for h in coord.hosts.values():
+            h.alive, h.last_heartbeat = True, clock[0]
+        out, s = timed(restore)
+        spent["restore"] += s
+        return out
+
+    def kill_host(c):
+        c.hosts[2].last_heartbeat = -100.0
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        def straight_run():
+            state = fresh(dev, SEED + 99)
+            for step in range(FT_STEPS):
+                state = step_fn(state, batch(step, dev))[0]
+            return state
+
+        straight, straight_s = timed(straight_run)
+        like["tree"] = convert.train_state_to_jax(straight, cfg)  # the leaves' shapes
+        sup = FT.TrainingSupervisor(coord, FT_SAVE_EVERY, save_fn, restore_fn)
+        (state, step), sup_s = timed(lambda: sup.run(fresh(dev, SEED + 99), step_and_beat,
+                                                     FT_STEPS, events={FT_KILL_AT: kill_host}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    same, total = _same_state(state, straight)
+    step_cost = straight_s / FT_STEPS
+    dlog(f"TrainingSupervisor over {FT_HOSTS} simulated hosts, {cfg.name} ({cfg.n_layers} layers "
+         f"at full width, deterministic algorithms): {FT_STEPS} steps, a checkpoint every "
+         f"{FT_SAVE_EVERY}, a host lost before step {FT_KILL_AT}: {sup.restarts} restart, "
+         f"{spent['replayed']} steps replayed, {same} of {total} leaves bitwise the straight run "
+         f"(step {int(state.opt.step)}); supervised {sup_s:.2f} s against {straight_s:.2f} s "
+         f"straight; saves {spent['save']:.2f} s, the restart {spent['restore']:.2f} s restore "
+         f"+ {spent['replayed'] * step_cost:.2f} s replayed = "
+         f"{spent['restore'] + spent['replayed'] * step_cost:.2f} s")
+    if sup.restarts != 1 or step != FT_STEPS or same != total:
+        raise AssertionError("the supervised run differs from uninterrupted training")
+
+
+def dist_ep(dev, dlog) -> None:
+    """deepseek-moe-16b's MoE layer on the expert-parallel path (a (1, 1)
+    mesh: the model group is this rank) against the dense path: outputs,
+    every gradient of sum(y^2), the drop fractions; times and peak memory."""
+    cfg = dataclasses.replace(get_arch(EP_ARCH), moe_capacity_factor=EP_CAPACITY)
+    g = torch.Generator(dev).manual_seed(SEED + 98)
+    weights = MOE.init_moe_params(g, cfg, dtype=torch.float32)
+    x = torch.randn((EP_BATCH, EP_SEQ, cfg.d_model), generator=g, device=dev)
+    mesh = make_debug_mesh((1, 1), device=dev.type)
+
+    def run(ep: bool):
+        params = {k: ({kk: t.clone().requires_grad_(True) for kk, t in v.items()}
+                      if isinstance(v, dict) else v.clone().requires_grad_(True))
+                  for k, v in weights.items()}
+        xx = x.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        with use_hints(mesh) if ep else contextlib.nullcontext():
+            y, aux = MOE.moe_block(params, cfg, xx)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (y**2).sum().backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        grads = {"x": xx.grad}
+        for name, v in params.items():
+            for sub, t in (v.items() if isinstance(v, dict) else [(None, v)]):
+                grads[name if sub is None else f"{name}.{sub}"] = t.grad
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        return y.detach(), float(aux["moe_drop_frac"]), grads, (t1 - t0, t2 - t1, peak)
+
+    run(True)  # warm-up: NCCL's first all-reduce, cuBLAS handles
+    dense = run(False)
+    ep = run(True)
+    scale = float(dense[0].abs().max())
+    out_err = float((ep[0] - dense[0]).abs().max())
+    worst = {}
+    for name, want in dense[2].items():
+        wmax = float(want.abs().max())
+        worst[name] = (float((ep[2][name] - want).abs().max()), wmax)
+    bad = [n for n, (err, wmax) in worst.items() if err > EP_GRAD_TOL * max(wmax, 1.0)]
+    (df, db, dp), (ef, eb, ep_peak) = dense[3], ep[3]
+    dlog(f"expert-parallel MoE, {cfg.name}'s layer (d_model {cfg.d_model}, {cfg.n_experts} "
+         f"experts top-{cfg.top_k}, {cfg.n_shared_experts} shared, d_expert {cfg.d_expert}, "
+         f"capacity {EP_CAPACITY}), {EP_BATCH} x {EP_SEQ} tokens fp32, mesh (1, 1) on "
+         f"{dist.get_backend()}: output max abs err {out_err:.3g} of {scale:.4g} (tolerance "
+         f"{EP_OUT_TOL} of it); gradients of sum(y^2) max abs err / leaf max: " + ", ".join(
+             f"{n} {e:.3g} / {w:.4g}" for n, (e, w) in worst.items())
+         + f" (tolerance {EP_GRAD_TOL}, of the leaf max where > 1); drop fraction dense "
+         f"{dense[1]} / EP {ep[1]}; forward + backward dense {df:.4f} + {db:.4f} s, EP "
+         f"{ef:.4f} + {eb:.4f} s (EP / dense {(ef + eb) / (df + db):.3f}); peak above the "
+         f"weights dense {dp:.2f} / EP {ep_peak:.2f} GiB")
+    if out_err > EP_OUT_TOL * max(scale, 1.0) or bad or dense[1] != 0.0 or ep[1] != 0.0:
+        raise AssertionError(f"the expert-parallel MoE differs from the dense path: output "
+                             f"{out_err}, gradients {bad}, drops {dense[1]} / {ep[1]}")
+
+
+def phase_dist(card: str, dev, params, step_s: float) -> None:
+    """4m: gradient compression, the compressed train step, the supervisor's
+    restart and the expert-parallel MoE on an NCCL group of world size 1
+    (`launch/_group.join`; destroyed only if this phase made it)."""
+    t0 = time.perf_counter()
+
+    def dlog(msg: str) -> None:
+        log(f"[dist] {msg} ({card})")
+
+    dev, made = _group.join(dev)
+    try:
+        torch.cuda.empty_cache()
+        dist_compression(params, dist.group.WORLD, step_s, dlog)
+        torch.cuda.empty_cache()
+        dist_train_step(dist.group.WORLD, dev, dlog)
+        torch.cuda.empty_cache()
+        dist_supervisor(dev, dlog)
+        torch.cuda.empty_cache()
+        dist_ep(dev, dlog)
+    finally:
+        if made:
+            dist.destroy_process_group()
+    dlog(f"done in {time.perf_counter() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -3480,8 +3811,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_families(card, rows, dev)
     torch.cuda.empty_cache()
-    trained = phase_train(card, dev)
+    trained, step_s = phase_train(card, dev)
     phase_knn(KNN_4L, card, rows, dev, params=trained)
+    torch.cuda.empty_cache()
+    phase_dist(card, dev, trained, step_s)
     log(f"[total] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     kind = torch.cuda.get_device_name(0)

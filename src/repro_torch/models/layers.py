@@ -51,11 +51,20 @@ def gated_mlp(x, wi_gate, wi_up, wo, act=F.silu) -> torch.Tensor:
     return (g * u) @ wo.to(x.dtype)
 
 
+class MetaGenerator:
+    """Stands in for a `torch.Generator` where parameters are shapes only
+    (`init_params(device="meta")`): `dense_init` draws nothing from it."""
+
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0, dtype=torch.float32) -> torch.Tensor:
     """A standard normal truncated to [-2, 2], times fan_in^-0.5, drawn from
     `gen` on its device. The draws are not `jax.random`'s: parameters are
     carried from the JAX package with `convert.lm_params_from_jax`."""
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if t.is_meta:
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * shape[in_axis] ** -0.5).to(dtype)
 

@@ -188,8 +188,10 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, dtype=torch.float32, device="
     """Random parameters on `device`, drawn from a `torch.Generator` seeded
     with `seed` (norm scales zero, as the reference initialises them).
     `dtype` is every weight's but the MoE router's and the SSM's `A_log`,
-    `D` and `dt_bias`, which are fp32."""
-    gen = torch.Generator(_device.resolve(device)).manual_seed(seed)
+    `D` and `dt_bias`, which are fp32. On `device="meta"` the parameters
+    are shapes and dtypes only: nothing is drawn or allocated."""
+    dev = _device.resolve(device)
+    gen = L.MetaGenerator() if dev.type == "meta" else torch.Generator(dev).manual_seed(seed)
     d, v = cfg.d_model, cfg.vocab
     kw = {}
     embed = lm_head = None

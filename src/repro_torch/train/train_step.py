@@ -2,9 +2,9 @@
 microbatch gradient accumulation, the MoE load-balance loss folded in.
 
 A port of the JAX package's `train/train_step.py`. The reference `jit`s
-the step; here it runs eagerly, one autograd pass a microbatch. The int8
-gradient compression of the cross-pod reduction (`compress_pod_grads`) is
-not ported yet (ROADMAP A.6b) and raises.
+the step; here it runs eagerly, one autograd pass a microbatch. With
+`compress_pod_grads` the gradients are averaged over the ranks of the pod
+group through the int8 `distributed.compression.compressed_psum_mean`.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.compression import compressed_psum_mean
 from repro_torch.models import transformer as T
 from repro_torch.train import optimizer as O
 
@@ -102,13 +103,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: O.AdamWConfig, *, microbatches: in
 
     `microbatches > 1` splits the batch's rows and accumulates the
     gradients in fp32, divided by the count; the loss is the microbatches'
-    mean and the aux metrics the last one's. The parameters take gradients
-    only while the step computes them (`loss_and_grads`), and AdamW updates
-    them in place. metrics: loss, ce, moe_aux, grad_norm, lr (tensors on
-    the parameters' device)."""
-    if compress_pod_grads or pod_axis is not None:
-        raise NotImplementedError("compress_pod_grads is not ported yet (ROADMAP A.6b)")
-
+    mean and the aux metrics the last one's. With `compress_pod_grads` and
+    `pod_axis` (a process group: the pod group of a mesh,
+    `mesh.get_group("pod")`) both set, the accumulated gradients are
+    replaced by their int8-compressed mean over that group before AdamW;
+    every rank of the group must step together. The parameters take
+    gradients only while the step computes them (`loss_and_grads`), and
+    AdamW updates them in place. metrics: loss, ce, moe_aux, grad_norm, lr
+    (tensors on the parameters' device; the loss is this rank's)."""
     loss_kw = dict(aux_weight=aux_weight, act_dtype=act_dtype, ce_chunk=ce_chunk,
                    remat_policy=remat_policy)
 
@@ -127,6 +129,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: O.AdamWConfig, *, microbatches: in
             grads = {name: g / microbatches for name, g in grads.items()}
         else:
             loss, aux, grads = loss_and_grads(params, cfg, batch, **loss_kw)
+        if compress_pod_grads and pod_axis is not None:
+            grads = {name: compressed_psum_mean(g, pod_axis) for name, g in grads.items()}
         _, opt, om = O.apply(opt_cfg, state.opt, dict(params.named_parameters()), grads)
         return TrainState(params, opt), {"loss": loss, **aux, **om}
 

@@ -103,12 +103,6 @@ def test_ce_masks_negative_targets():
     assert abs(float(got) - float(want)) <= 1e-6
 
 
-def test_compress_pod_grads_is_not_ported_yet():
-    cfg = reduced(get_arch("gemma3-1b"))
-    with pytest.raises(NotImplementedError):
-        TS.make_train_step(cfg, O.AdamWConfig(), compress_pod_grads=True, pod_axis="pod")
-
-
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
