@@ -3,7 +3,8 @@
 search, host rescore tier, layout pass, sharded searches, serving layer,
 kNN-LM retrieval in an LM's decode loop, every LM family, training, and the
 multi-rank training pieces (gradient compression, the fault-tolerance
-supervisor, the expert-parallel MoE) on one NVIDIA card.
+supervisor, the expert-parallel MoE) and the production-mesh dry-run on one
+NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, on a machine with a card
     python3 chip_smoke.py --knn-states chiprun_out/knn_states.npz   # also save 4i's witness states
@@ -191,6 +192,22 @@ Phases, each printing its own lines with seconds:
      `use_hints(make_debug_mesh((1, 1)))` against the dense path: output
      within 1e-5 of its largest magnitude, every gradient of sum(y^2) within
      1e-3, no drops, both paths' times and peak memory;
+  4n. the production-mesh dry-run, after 4m (`launch/dryrun.py`, over fake
+     process groups): the GRNND cells (`build_1m_d128`, `build_1m_d960`:
+     one rank's a2a build round on the card, n = 2^20) over 256 and 512
+     ranks and over 16 and 32 under REPRO_TORCH_MESH_OVERRIDE "4,4" /
+     "2,4,4", each with its all-to-all bytes (exactly 3·S·cap·4), argument
+     bytes, peak memory and round time, then B1 and B2 held against their
+     plain versions at each cell's shapes; 4l's train step traced on meta
+     at a (1, 1) mesh, whose FLOPs and argument bytes must equal one real
+     step's `FlopCounterMode` count and resident bytes, its predicted peak
+     printed beside the measured one; one train_4k cell a policy on the
+     16 x 16 group (mamba2-130m dp_only, gemma2-2b tp, gemma3-27b zero1,
+     qwen3-moe-235b-a22b fsdp) and gemma2-2b long_500k, on CUDA ranks,
+     mamba2, gemma3-27b and qwen3-moe cut to their 1- and 2-unit probes
+     (their whole traces take 45-60 s each; `tools/dryrun_sweep.sh` runs
+     every cell whole), gemma2-2b's train cell traced whole and by its
+     probes, which must agree;
   5. where the time goes: torch.profiler over one propagation round, one
      hashed search (with the summed device time of `search_expand` and of
      `visited_insert`) and the same search with the dense mask, one insert
@@ -201,7 +218,8 @@ Phases, each printing its own lines with seconds:
 
 Each path (4, 3b, 4b, 4c, 4d's filtered and layout paths, 4e, 4f, 4g, 4h's
 three workers and its CLI runs, 4i, 4j and 4l: the datastore's build, one
-source-filtered retrieval and the generation; 4k's two small datastores)
+source-filtered retrieval and the generation; 4k's two small datastores;
+4n's GRNND cells)
 runs with the
 launch counts set to 0 just before it and read just after; every kernel it
 runs must have launched. Then one JSON line {"kernels": [...]} and, last,
@@ -240,7 +258,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import convert  # noqa: E402
 from repro_torch.checkpoint import checkpoint as CKPT  # noqa: E402
 from repro_torch.configs import ALL_ARCHS, get_arch, reduced  # noqa: E402
-from repro_torch.configs.base import truncate_units  # noqa: E402
+from repro_torch.configs.base import ShapeConfig, truncate_units  # noqa: E402
 from repro_torch.configs.grnnd_paper import SIFT1M  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     Draws,
@@ -266,6 +284,7 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core import corpus_shard as CS  # noqa: E402
 from repro_torch.core import distributed as D  # noqa: E402
+from repro_torch.core.grnnd import GRNNDConfig  # noqa: E402
 from repro_torch.core.labels import pack_ids  # noqa: E402
 from repro_torch.core.pools import stage_request_matrix  # noqa: E402
 from repro_torch.core.search import _table_insert, default_visited_cap  # noqa: E402
@@ -274,6 +293,7 @@ from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.data.synthetic import token_stream  # noqa: E402
 from repro_torch.distributed import compression as COMP  # noqa: E402
 from repro_torch.distributed import fault_tolerance as FT  # noqa: E402
+from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.distributed.hints import use_hints  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.gather_l2 import gather_sqdist  # noqa: E402
@@ -283,10 +303,16 @@ from repro_torch.kernels.search_expand import search_expand  # noqa: E402
 from repro_torch.kernels.topr_merge import topr_merge  # noqa: E402
 from repro_torch.kernels.visited_insert import visited_insert  # noqa: E402
 from repro_torch.launch import _group  # noqa: E402
+from repro_torch.launch import dryrun as DRY  # noqa: E402
+from repro_torch.launch import specs as DR_SPEC  # noqa: E402
 from repro_torch.launch import build_index as build_cli  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    PEAK_FLOPS_BF16,
+    make_debug_mesh,
+    make_production_mesh,
+)
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as LM  # noqa: E402
@@ -629,6 +655,27 @@ FT_HOSTS, FT_STEPS, FT_SAVE_EVERY, FT_KILL_AT = 4, 10, 5, 7
 # exceeds 1), the reference test's tolerances
 EP_ARCH, EP_BATCH, EP_SEQ, EP_CAPACITY, EP_OUT_TOL, EP_GRAD_TOL = (
     "deepseek-moe-16b", 8, 512, 16.0, 1e-5, 1e-3)
+
+# 4n: the production-mesh dry-run. The GRNND cells (one rank's a2a build
+# round, real tensors on the card) of each shape over fake groups of each
+# world (the production meshes' 256 and 512 ranks, and 16 and 32 under
+# REPRO_TORCH_MESH_OVERRIDE "4,4" / "2,4,4"); 4l's train step traced on
+# meta at a (1, 1) mesh against one real step; the production cells on the
+# 16 x 16 fake group, one a policy, the fsdp one with its cost probes, and
+# one long-context decode cell
+DRY_WORLDS = ((256, None), (512, None), (16, "4,4"), (32, "2,4,4"))  # (ranks, override)
+# (arch, shape, whole, probes): the cells whose whole-depth trace takes
+# 45-60 s on an H100 machine's host (mamba2-130m's 24 layers of scan chunks,
+# gemma3-27b's 62 layers, qwen3-moe's 94) are cut to their 1- and 2-unit
+# probes, extrapolated (`dryrun.probe_cost`), to keep 4n near 60 s;
+# `tools/dryrun_sweep.sh` traces them whole. gemma2-2b's train cell is
+# traced whole and by its probes, which must agree
+DRY_CELLS = (("mamba2-130m", "train_4k", False, True), ("gemma2-2b", "train_4k", True, True),
+             ("gemma3-27b", "train_4k", False, True),
+             ("qwen3-moe-235b-a22b", "train_4k", False, True),
+             ("gemma2-2b", "long_500k", True, False))
+ROW_PATH.update({f"{k}[grnnd,d={spec['d']},S={w}]": "dryrun" for k in ("rng_round", "topr_merge")
+                 for spec in DR_SPEC.GRNND_SHAPES.values() for w, _ in DRY_WORLDS})
 
 
 def log(msg: str) -> None:
@@ -3669,6 +3716,204 @@ def phase_dist(card: str, dev, params, step_s: float) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4n: the production-mesh dry-run
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def mesh_override(value):
+    """REPRO_TORCH_MESH_OVERRIDE set to `value` (unset for None) in the body."""
+    old = os.environ.pop("REPRO_TORCH_MESH_OVERRIDE", None)
+    if value is not None:
+        os.environ["REPRO_TORCH_MESH_OVERRIDE"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("REPRO_TORCH_MESH_OVERRIDE", None)
+        if old is not None:
+            os.environ["REPRO_TORCH_MESH_OVERRIDE"] = old
+
+
+def dry_grnnd(dev, rows, ylog) -> None:
+    """Each GRNND cell on the card over each fake group: rank 0's round
+    under `trace_stats` (the record's counts), then timed alone; after
+    each cell, B1 and B2 held against their plain versions at its shapes
+    (phase 2's rows): B1 on the cell's pool slice, B2 on that round's merge
+    with the rank's own requests as the received ones (under a fake group
+    the all-to-all moves nothing). The path's launch counts are the cells'
+    alone."""
+    cfg = GRNNDConfig(**DR_SPEC.GRNND_CELL_CFG)
+    measure = functools.partial(kernel_row, rows)
+    path: dict[str, int] = {}
+    for world, override in DRY_WORLDS:
+        for shape in DR_SPEC.GRNND_SHAPES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = ops.launch_counts()
+            with mesh_override(override), DRY.fake_group(world):
+                mesh = make_production_mesh(multi_pod=world == 512, device="cuda")
+                fn, (x, ids, dists) = DR_SPEC._grnnd_cell(shape, mesh, device="cuda")
+                rec = DRY.trace_stats(fn, (x, ids, dists))
+                _, round_s = timed(lambda: fn(x, ids, dists))
+                sizes = SH.axis_sizes(mesh)
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            after = ops.launch_counts()
+            for name, v in after.items():
+                path[name] = path.get(name, 0) + v - before.get(name, 0)
+            col, mem = rec["collectives"], rec["memory"]
+            ylog(f"grnnd {shape} over {world} ranks {sizes}: all-to-all {col['all-to-all']} B "
+                 f"in {col['n_all-to-all']}, all-reduce {col['all-reduce']} B in "
+                 f"{col['n_all-reduce']}; arguments {mem['argument_size_bytes']} B, "
+                 f"temporaries {mem['temp_size_bytes']} B, peak {peak:.2f} GiB; one rank's round "
+                 f"{round_s * 1e3:.2f} ms ({rec['trace_s']}s under the counter)")
+            if col["n_all-to-all"] != 3:
+                raise AssertionError(f"the grnnd cell {shape} over {world} ranks: {rec}")
+
+            n, d = x.shape
+            c, r, p = ids.shape[0], cfg.r, cfg.pairs_per_vertex
+            si, sj = (a.to(dev) for a in Draws(SEED, dev).shard_slot_pairs(0, 0, 0, c, r, p))
+            tag = f"[grnnd,d={d},S={world}]"
+
+            def rng_check(got, want):
+                err, ties = check_rng_round(got, want, dists, si, sj)
+                return err, f"; {ties} dst mismatches at near-ties"
+
+            measure(f"rng_round{tag}", "src/repro_torch/kernels/csrc/rng_round.cu",
+                    "src/repro/kernels/rng_round.py:124",
+                    lambda: rng_round(x, ids, dists, si, sj),
+                    lambda: ref.rng_round_ref(x, ids, dists, si, sj),
+                    rng_check, unique_rows(ids) * d * 4 + c * r * 9 + c * p * 20, 3 * c * p * d,
+                    None, 10, launches_of="rng_round")
+            dst, src, dij, kill = rng_round(x, ids, dists, si, sj)
+            own = D._filter_to_local(
+                D.P.Requests(dst.reshape(-1), src.reshape(-1), dij.reshape(-1)), 0, c)
+            staged_i, staged_d = D.P.group_requests(own, c, cfg.cap, drop_self=False)
+            mi = torch.cat([torch.where(kill, -1, ids), staged_i], 1).contiguous()
+            md = torch.cat([torch.where(kill, torch.inf, dists), staged_d], 1).contiguous()
+            del dst, src, dij, kill, own, staged_i, staged_d, x
+            b, w = mi.shape
+
+            def merge_check(got, want):
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError("topr_merge differs from its plain version")
+                return 0.0, "; ids and dists equal"
+
+            measure(f"topr_merge{tag}", "src/repro_torch/kernels/csrc/topr_merge.cu",
+                    "src/repro/kernels/topr_merge.py:58",
+                    lambda: topr_merge(mi, md, r), lambda: ref.topr_merge_ref(mi, md, r),
+                    merge_check, b * w * 8 + b * r * 8, b * w * math.log2(w), None, 10,
+                    launches_of="topr_merge")
+            del mi, md, ids, dists, fn
+    path_counts("dryrun", path, ("rng_round", "topr_merge"), rows)
+
+
+def dry_step(dev, step_s: float, ylog) -> None:
+    """4l's train step (gemma3-1b at full width, batch TRAIN_BATCH x
+    TRAIN_SEQ, bf16 activations, remat full, CE chunks of 512) traced on
+    meta at a (1, 1) mesh, against one real step on the card: the traced
+    FLOPs equal `FlopCounterMode`'s count of the real step, the argument
+    bytes the real parameters', moments', step's and batch's; the
+    predicted peak (arguments + the trace's temporaries) beside the
+    measured one."""
+    cfg = get_arch(TRAIN_ARCH)
+    shape = ShapeConfig("4l", TRAIN_SEQ, TRAIN_BATCH, "train")
+    with DRY.fake_group(1):
+        mesh = make_debug_mesh((1, 1), device=DRY.mesh_device("cuda"))
+        fn, args = DR_SPEC.make_cell(TRAIN_ARCH, shape, mesh)
+        rec = DRY.trace_stats(fn, args)
+        del fn, args
+    from torch.utils.flop_counter import FlopCounterMode
+
+    torch.cuda.empty_cache()
+    params = LM.init_params(cfg, seed=SEED, device=dev)
+    state = TS.TrainState(params, OPT.init(dict(params.named_parameters())))
+    batch = PIPE.batch_for_step(cfg, 0, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+    step = TS.make_train_step(cfg, OPT.AdamWConfig(lr=TRAIN_LR), act_dtype=torch.bfloat16)
+    real_bytes = sum(t.nbytes for t in (*params.parameters(), *state.opt.mu.values(),
+                                        *state.opt.nu.values(), state.opt.step,
+                                        *batch.values()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counter = FlopCounterMode(display=False)
+    with counter:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    flops = counter.get_total_flops()
+    mem = rec["memory"]
+    predicted = mem["argument_size_bytes"] + mem["temp_size_bytes"]
+    ylog(f"4l's step traced on meta at (1, 1) ({rec['trace_s']}s, {rec['hlo_ops']} local ops): "
+         f"{rec['cost']['flops']:.0f} FLOPs against FlopCounterMode's {flops} of one real step; "
+         f"arguments {mem['argument_size_bytes']} B against the real step's {real_bytes} B; "
+         f"predicted peak {predicted / 2**30:.2f} GiB (arguments + temporaries "
+         f"{mem['temp_size_bytes'] / 2**30:.2f}) against the measured "
+         f"{peak / 2**30:.2f} GiB; 4l's step {step_s:.4f}s: {flops / step_s / 1e12:.1f} TFLOP/s, "
+         f"{flops / step_s / PEAK_FLOPS_BF16:.1%} of the bf16 peak")
+    del state, params, batch
+    if rec["cost"]["flops"] != flops or mem["argument_size_bytes"] != real_bytes:
+        raise AssertionError("the dry-run's count of 4l's step differs from the real step's")
+
+
+def _cost_line(cost: dict, col: dict) -> str:
+    return (f"{cost['flops']:.4g} FLOPs, {cost['bytes_accessed']:.4g} B accessed; collectives "
+            + ", ".join(f"{c} {col[c] / 2**30:.3f} GiB in {col['n_' + c]:.0f}"
+                        for c in DRY.COLLECTIVES if col["n_" + c]))
+
+
+def dry_cells(ylog) -> None:
+    """The production cells on the 16 x 16 fake group of CUDA ranks:
+    `run_cell` for the whole-depth ones (with their probes where asked, which
+    must equal the whole trace), `probe_cost` for the cut ones."""
+    with mesh_override(None):
+        for arch, shape, whole, probes in DRY_CELLS:
+            kind = DR_SPEC.SHAPES[shape].kind
+            policy = DR_SPEC.parallelism_policy(get_arch(arch), DR_SPEC.SHAPES[shape],
+                                                {"data": 16, "model": 16})
+            where = f"{arch} {shape} on 16 x 16 (cuda ranks, {policy if kind == 'train' else kind})"
+            if whole:
+                rec = DRY.run_cell(arch, shape, "single", cost_probes=probes)
+                if rec["status"] != "ok":
+                    raise AssertionError(f"{arch} {shape}: {rec}")
+                mem = rec["memory"]
+                ylog(f"{where}: traced whole in {rec['trace_s']}s; per rank: arguments "
+                     f"{mem['argument_size_bytes'] / 2**30:.3f} GiB, temporaries "
+                     f"{mem['temp_size_bytes'] / 2**30:.3f} GiB, {rec['hlo_ops']} local ops, "
+                     + _cost_line(rec["cost"], rec["collectives"]))
+                if probes:
+                    ylog(f"{where}: its probes, traced in {rec['probe_compile_s']}s: "
+                         + _cost_line(rec["cost_probes"], rec["collectives_probes"]))
+                    if rec["cost_probes"] != rec["cost"] \
+                            or rec["collectives_probes"] != rec["collectives"]:
+                        raise AssertionError(f"{arch} {shape}: the probes differ from the "
+                                             "whole-depth trace")
+            else:
+                with DRY.fake_group(256):
+                    mesh = make_production_mesh(device=DRY.mesh_device("cuda"))
+                    ex, secs = DRY.probe_cost(arch, shape, mesh)
+                rec = {"arch": arch, "shape": shape, "mesh": "single", "status": "ok",
+                       "probe_compile_s": secs, "cost_probes": ex["cost"],
+                       "collectives_probes": ex["collectives"]}
+                ylog(f"{where}: cut to its probes, traced in {secs}s; per rank: "
+                     + _cost_line(ex["cost"], ex["collectives"]))
+            log(json.dumps({"dryrun_record": rec}))
+
+
+def phase_dryrun(card: str, dev, rows, step_s: float) -> None:
+    """4n: the production-mesh dry-run (`launch/dryrun.py`)."""
+    t0 = time.perf_counter()
+
+    def ylog(msg: str) -> None:
+        log(f"[dryrun] {msg} ({card})")
+
+    dry_grnnd(dev, rows, ylog)
+    torch.cuda.empty_cache()
+    dry_step(dev, step_s, ylog)
+    torch.cuda.empty_cache()
+    dry_cells(ylog)
+    ylog(f"done in {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: where the time goes (after the main path's counts are read)
 # ---------------------------------------------------------------------------
 
@@ -3815,6 +4060,9 @@ def main() -> None:
     phase_knn(KNN_4L, card, rows, dev, params=trained)
     torch.cuda.empty_cache()
     phase_dist(card, dev, trained, step_s)
+    del trained
+    torch.cuda.empty_cache()
+    phase_dryrun(card, dev, rows, step_s)
     log(f"[total] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     kind = torch.cuda.get_device_name(0)

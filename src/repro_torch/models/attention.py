@@ -3,7 +3,8 @@
 sequences, and single-token decode against a KV cache.
 
 A port of the JAX package's `models/attention.py`. Attention there is plain
-`einsum`, not a Pallas kernel, so it is plain PyTorch here, with the same
+`einsum`, not a Pallas kernel, so it is plain PyTorch here (`sharding.einsum`
+and `sharding.reshape`: `torch.einsum` and `reshape` on plain tensors), with the same
 arithmetic: scores scaled by `dh^-0.5` in the activation dtype, then cast
 to fp32 and soft-capped; masks fill with `NEG_INF` (not -inf); the
 probabilities are cast to v's dtype before the product.
@@ -19,8 +20,10 @@ Layout conventions:
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 
 NEG_INF = -(2.0**30)  # large-negative instead of -inf: keeps softmax NaN-free
@@ -42,9 +45,9 @@ def init_attn_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32)
 
 def qkv(p, cfg: ArchConfig, x, positions):
     """Project + RoPE. x (B, S, D), positions (B, S) -> q, k, v."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    q = SH.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = SH.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+    v = SH.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -57,16 +60,16 @@ def _scores(q, k, cfg: ArchConfig) -> torch.Tensor:
     and soft-capped."""
     b, sq, h, dh = q.shape
     kk = k.shape[2]
-    qg = q.reshape(b, sq, kk, h // kk, dh)
-    s = torch.einsum("bskgd,btkd->bkgst", qg, k) * (dh**-0.5)
+    qg = SH.reshape(q, b, sq, kk, h // kk, dh)
+    s = SH.einsum("bskgd,btkd->bkgst", qg, k) * (dh**-0.5)
     return L.softcap(s.float(), cfg.attn_softcap)
 
 
 def _combine(scores, v) -> torch.Tensor:
     """scores (B, K, G, Sq, Sk) fp32, v (B, Sk, K, Dh) -> (B, Sq, H, Dh)."""
     b, kk, g, sq, _ = scores.shape
-    out = torch.einsum("bkgst,btkd->bskgd", scores.to(v.dtype), v)
-    return out.reshape(b, sq, kk * g, v.shape[-1])
+    out = SH.einsum("bkgst,btkd->bskgd", scores.to(v.dtype), v)
+    return SH.reshape(out, b, sq, kk * g, v.shape[-1])
 
 
 def _masked_softmax(s, mask) -> torch.Tensor:
@@ -126,11 +129,11 @@ def blockwise_attention(q, k, v, cfg: ArchConfig, *, window: int = 0, q_chunk: i
             alpha = torch.exp(m - m_new)
             pr = torch.exp(sc - m_new[..., None])
             l_sum = l_sum * alpha + pr.sum(-1)
-            pv = torch.einsum("bkgst,btkd->bkgsd", pr.to(vc.dtype), vc)
+            pv = SH.einsum("bkgst,btkd->bkgsd", pr.to(vc.dtype), vc)
             acc = acc * alpha[..., None].to(acc.dtype) + pv
             m = m_new
         out = acc / l_sum.clamp_min(1e-30)[..., None].to(acc.dtype)
-        outs.append(out.movedim(3, 1).reshape(b, q_chunk, h, dh))
+        outs.append(SH.reshape(out.movedim(3, 1), b, q_chunk, h, dh))
     return torch.cat(outs, dim=1)
 
 
@@ -160,7 +163,31 @@ def attention_block(p, cfg: ArchConfig, x, positions, *, kind: str,
     else:
         qp = positions[0]
         out = full_attention(q, k, v, cfg, qp, qp, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), (k, v)
+    return SH.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), (k, v)
+
+
+def _write_slot_sharded(cache: DTensor, new, slot) -> None:
+    """`cache[b, slot[b]] = new[b]` on a DTensor cache (B, Smax, K, Dh)
+    whose batch, sequence and head dims may be sharded, written into each
+    rank's own block (DTensor has no in-place rule for the scattered
+    write): `new` (B, K, Dh) and `slot` (B,) are redistributed to the
+    cache's batch and head sharding (replicated along the sequence's mesh
+    dims), and a rank whose sequence block misses a row's slot writes that
+    row's old entry back."""
+    mesh, pl = cache.device_mesh, list(cache.placements)
+    # new / slot along the cache's sharded dims: batch (0) and heads (2 -> 1)
+    new_pl = [Shard({0: 0, 2: 1}[p.dim]) if isinstance(p, Shard) and p.dim in (0, 2)
+              else Replicate() for p in pl]
+    slot_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl]
+    new_l = SH.as_dtensor(new, mesh).redistribute(mesh, new_pl).to_local()
+    slot_l = SH.as_dtensor(slot, mesh).redistribute(mesh, slot_pl).to_local()
+    local = cache.to_local()
+    s_off, s_loc = SH.block_offsets(cache.shape, pl, mesh).get(1, (0, cache.shape[1]))
+    rows = torch.arange(local.shape[0], device=local.device)
+    at = slot_l - s_off
+    mine = (at >= 0) & (at < s_loc)
+    at = at.clamp(0, s_loc - 1)
+    local[rows, at] = torch.where(mine[:, None, None], new_l.to(local.dtype), local[rows, at])
 
 
 def attention_decode_block(p, cfg: ArchConfig, x1, cache: dict, pos, *, kind: str):
@@ -173,10 +200,14 @@ def attention_decode_block(p, cfg: ArchConfig, x1, cache: dict, pos, *, kind: st
     """
     b, smax = x1.shape[0], cache["k"].shape[1]
     q, k_new, v_new = qkv(p, cfg, x1, pos[:, None])
-    rows = torch.arange(b, device=x1.device)
     slot = pos.clamp(0, smax - 1).long()
-    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+    if isinstance(cache["k"], DTensor):
+        _write_slot_sharded(cache["k"], k_new[:, 0], slot)
+        _write_slot_sharded(cache["v"], v_new[:, 0], slot)
+    else:
+        rows = torch.arange(b, device=x1.device)
+        cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
     window = cfg.window if kind == "local" else 0
     out = decode_attention(q, cache["k"], cache["v"], cfg, pos, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x1.dtype)), cache
+    return SH.einsum("bshk,hkd->bsd", out, p["wo"].to(x1.dtype)), cache

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm computed in fp32, scaled by `1 + scale`, cast back to x's dtype."""
@@ -46,9 +48,9 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
 
 def gated_mlp(x, wi_gate, wi_up, wo, act=F.silu) -> torch.Tensor:
     """SwiGLU-style gated MLP: (x @ Wg).act * (x @ Wu) @ Wo."""
-    g = act(x @ wi_gate.to(x.dtype))
-    u = x @ wi_up.to(x.dtype)
-    return (g * u) @ wo.to(x.dtype)
+    g = act(SH.matmul(x, wi_gate.to(x.dtype)))
+    u = SH.matmul(x, wi_up.to(x.dtype))
+    return SH.matmul(g * u, wo.to(x.dtype))
 
 
 class MetaGenerator:

@@ -19,7 +19,9 @@ divides `n_experts`, `moe_block` takes the expert-parallel path
 (`_moe_block_ep`): each rank holds its own rows of the batch, copied across
 its model group, and its `E / n_ep` experts' weights; it routes its rows
 over all E experts, runs its own experts (`_permute_ffn`) and one
-all-reduce over the model group sums the partial outputs.
+all-reduce over the model group sums the partial outputs. With DTensor
+parameters and activations (the dry-run's) it converts to each rank's local
+tensors at its entry and back at its exit (`_moe_block_ep_dtensor`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import hints as H
@@ -195,10 +198,61 @@ def _moe_block_ep(params, cfg: ArchConfig, x: torch.Tensor, hints: H.MeshHints):
         sp = params["shared"]
         y = y + L.gated_mlp(xt, sp["wi_gate"], sp["wi_up"], sp["wo"])
 
-    me = torch.bincount(idx.reshape(-1), minlength=e).float()
+    me = _expert_counts(idx.reshape(-1), e)
     me = me / me.sum().clamp_min(1.0)
     aux = {"moe_lb_loss": e * (me * probs.mean(0)).sum(), "moe_drop_frac": drop}
     return y.reshape(b, s, d), aux
+
+
+def _expert_counts(flat_idx: torch.Tensor, e: int) -> torch.Tensor:
+    """Assignments an expert, fp32 (E,): an `index_add_` of ones, exact
+    below 2^24 a count (`bincount` has no `meta` kernel, which the dry-run
+    traces on)."""
+    ones = torch.ones(flat_idx.shape, dtype=torch.float32, device=flat_idx.device)
+    return torch.zeros((e,), dtype=torch.float32, device=flat_idx.device).index_add_(
+        0, flat_idx, ones)
+
+
+def _items(tree):
+    """(name, leaf or sub-tree) of a `ParamTree` or a dict."""
+    if isinstance(tree, dict):
+        return tree.items()
+    return [*tree._parameters.items(), *tree._modules.items()]
+
+
+def _moe_block_ep_dtensor(params, cfg: ArchConfig, x: DTensor, hints: H.MeshHints):
+    """`_moe_block_ep` on DTensors: each rank's tokens (the batch over the
+    data axes, whole on the model axis; whole everywhere if the batch does
+    not split), its experts' weights (over the model axis) and the router
+    and shared experts whole go in as local tensors, and the output comes
+    back a DTensor of the token placement. The parameters' gradients are
+    partial sums over the data axes (each rank's from its own tokens); the
+    aux values are this rank's, taken as replicated, as the reference's
+    `shard_map` returns its lb."""
+    mesh = hints.mesh
+    names = mesh.mesh_dim_names
+    n_data = 1
+    for a in hints.data_axes:
+        n_data *= mesh[a].size()
+    split = x.shape[0] % n_data == 0
+    tok = [Shard(0) if split and n in hints.data_axes else Replicate() for n in names]
+    rep = [Replicate()] * len(names)
+
+    def local(tree):
+        out = {}
+        for name, v in _items(tree):
+            if not isinstance(v, torch.Tensor):
+                out[name] = local(v)
+                continue
+            expert = name in ("wi_gate", "wi_up", "wo") and v.dim() == 3
+            pl = [Shard(0) if expert and n == hints.model_axis else Replicate() for n in names]
+            grad_pl = [Partial() if split and n in hints.data_axes else p for n, p in zip(names, pl)]
+            out[name] = v.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+        return out
+
+    y, aux = _moe_block_ep(local(params), cfg, x.redistribute(mesh, tok).to_local(), hints)
+    y = DTensor.from_local(y, mesh, tok, run_check=False, shape=x.shape, stride=x.stride())
+    return y, {k: DTensor.from_local(v, mesh, rep, run_check=False) for k, v in aux.items()}
 
 
 def moe_block(params, cfg: ArchConfig, x: torch.Tensor):
@@ -208,7 +262,13 @@ def moe_block(params, cfg: ArchConfig, x: torch.Tensor):
     hints = H.get_hints()
     if hints is not None and hints.model_axis is not None \
             and cfg.n_experts % hints.mesh[hints.model_axis].size() == 0:
+        if isinstance(x, DTensor):
+            return _moe_block_ep_dtensor(params, cfg, x, hints)
         return _moe_block_ep(params, cfg, x, hints)
+    if isinstance(x, DTensor):
+        raise NotImplementedError(
+            f"the MoE block on DTensors runs expert-parallel only: {cfg.n_experts} experts "
+            "need hints whose model axis divides them")
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
@@ -255,7 +315,7 @@ def moe_block(params, cfg: ArchConfig, x: torch.Tensor):
         y = y + L.gated_mlp(xt, sp["wi_gate"], sp["wi_up"], sp["wo"])
 
     # aux: the Switch-style load-balance loss and the dropped share
-    me = torch.bincount(flat_e, minlength=e).float() / (t * k)
+    me = _expert_counts(flat_e, e) / (t * k)
     pe = probs.mean(0)
     aux = {
         "moe_lb_loss": e * (me * pe).sum(),

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 
 
@@ -52,7 +53,8 @@ def _causal_conv(xbc, w, bias):
     """Depthwise causal conv over (B, S, C) with taps (W, C): the taps added
     in order, in the activation dtype, then SiLU."""
     width = w.shape[0]
-    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    # zeros of xbc's placement (a DTensor's pad would plan a redistribution)
+    pad = torch.cat([xbc.new_zeros((xbc.shape[0], width - 1, xbc.shape[2])), xbc], dim=1)
     out = torch.zeros_like(xbc)
     for i in range(width):
         out = out + pad[:, i : i + xbc.shape[1], :] * w[i][None, None, :]
@@ -73,11 +75,11 @@ def _ssd_chunked(xh, a, b, c, h0, chunk: int):
         q //= 2
     nchunks = s // q
 
-    xh_c = xh.reshape(bsz, nchunks, q, nh, hd)
-    b_c = b.reshape(bsz, nchunks, q, st)
-    c_c = c.reshape(bsz, nchunks, q, st)
-    la = torch.log(a.reshape(bsz, nchunks, q, nh).clamp_min(1e-37))
-    cum = torch.cumsum(la, dim=2)  # (B, NC, Q, nh): log prod_{t <= i}
+    xh_c = SH.reshape(xh, bsz, nchunks, q, nh, hd)
+    b_c = SH.reshape(b, bsz, nchunks, q, st)
+    c_c = SH.reshape(c, bsz, nchunks, q, st)
+    la = torch.log(SH.reshape(a, bsz, nchunks, q, nh).clamp_min(1e-37))
+    cum = SH.local_along(lambda t: torch.cumsum(t, dim=2), la, 2)  # (B, NC, Q, nh): log prod_{t <= i}
     causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xh.device))
 
     h = h0
@@ -89,18 +91,18 @@ def _ssd_chunked(xh, a, b, c, h0, chunk: int):
         # would overflow)
         li = cum_i[:, :, None, :] - cum_i[:, None, :, :]  # (B, Q, Q, nh)
         dec = torch.exp(torch.where(causal[None, :, :, None], li, -1e30))
-        cb = torch.einsum("bis,bjs->bij", c_i, b_i)
-        y_intra = torch.einsum("bijh,bjhd->bihd", cb[..., None] * dec, xh_i)
+        cb = SH.einsum("bis,bjs->bij", c_i, b_i)
+        y_intra = SH.einsum("bijh,bjhd->bihd", cb[..., None] * dec, xh_i)
         # inter-chunk: y[i] += (prod_{t <= i} a) * c_i^T h_in
-        y_inter = torch.einsum("bis,bhds->bihd", c_i, h) * torch.exp(cum_i)[..., None]
+        y_inter = SH.einsum("bis,bhds->bihd", c_i, h) * torch.exp(cum_i)[..., None]
         ys.append(y_intra + y_inter)
         # the state: h_out = (prod_chunk a) h_in + sum_j (prod_{t > j} a) xh_j b_j^T
         tot = cum_i[:, -1, :]  # (B, nh)
         rem = torch.exp(tot[:, None, :] - cum_i)  # (B, Q, nh)
-        h = torch.exp(tot)[:, :, None, None] * h + torch.einsum(
+        h = torch.exp(tot)[:, :, None, None] * h + SH.einsum(
             "bjhd,bjs->bhds", rem[..., None] * xh_i, b_i
         )
-    y = torch.stack(ys, dim=1).reshape(bsz, s, nh, hd)
+    y = SH.reshape(torch.stack(ys, dim=1), bsz, s, nh, hd)
     return y, h
 
 
@@ -110,8 +112,8 @@ def ssd_naive(xh, a, b, c, h0):
     h = h0
     ys = []
     for t in range(xh.shape[1]):
-        h = a[:, t, :, None, None] * h + torch.einsum("bhd,bs->bhds", xh[:, t], b[:, t])
-        ys.append(torch.einsum("bhds,bs->bhd", h, c[:, t]))
+        h = a[:, t, :, None, None] * h + SH.einsum("bhd,bs->bhds", xh[:, t], b[:, t])
+        ys.append(SH.einsum("bhds,bs->bhd", h, c[:, t]))
     return torch.stack(ys, dim=1), h
 
 
@@ -122,10 +124,10 @@ def ssm_block(params, cfg: ArchConfig, x, *, h0=None, return_cache: bool = False
     bsz, s, _ = x.shape
     di, st, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
 
-    zxbcdt = x @ params["in_proj"].to(x.dtype)
+    zxbcdt = SH.matmul(x, params["in_proj"].to(x.dtype))
     z, xbc, dt = _split_proj(cfg, zxbcdt)
     xbc = _causal_conv(xbc, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype))
-    xs = xbc[..., :di].reshape(bsz, s, nh, hd).float()
+    xs = SH.reshape(xbc[..., :di], bsz, s, nh, hd).float()
     b = xbc[..., di : di + st].float()
     c = xbc[..., di + st :].float()
 
@@ -137,10 +139,10 @@ def ssm_block(params, cfg: ArchConfig, x, *, h0=None, return_cache: bool = False
         h0 = torch.zeros((bsz, nh, hd, st), dtype=torch.float32, device=x.device)
     y, h_final = _ssd_chunked(xh, a, b, c, h0, cfg.ssm_chunk)
     y = y + params["D"][None, None, :, None] * xs
-    y = y.reshape(bsz, s, di).to(x.dtype)
+    y = SH.reshape(y, bsz, s, di).to(x.dtype)
 
     y = L.rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    out = y @ params["out_proj"].to(x.dtype)
+    out = SH.matmul(y, params["out_proj"].to(x.dtype))
     if return_cache:
         _, xbc_raw, _ = _split_proj(cfg, zxbcdt[:, -(cfg.ssm_conv - 1) :, :])
         return out, {"h": h_final, "conv": xbc_raw}
@@ -154,14 +156,14 @@ def ssm_decode_block(params, cfg: ArchConfig, x1, cache: dict):
     bsz = x1.shape[0]
     di, st, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
 
-    zxbcdt = x1 @ params["in_proj"].to(x1.dtype)
+    zxbcdt = SH.matmul(x1, params["in_proj"].to(x1.dtype))
     z, xbc_new, dt = _split_proj(cfg, zxbcdt)  # (B, 1, .)
 
     conv_win = torch.cat([cache["conv"], xbc_new], dim=1)  # (B, W, C)
-    conv_out = torch.einsum("bwc,wc->bc", conv_win, params["conv_w"].to(x1.dtype))
+    conv_out = SH.einsum("bwc,wc->bc", conv_win, params["conv_w"].to(x1.dtype))
     xbc = F.silu(conv_out + params["conv_b"])[:, None, :]  # (B, 1, C)
 
-    xs = xbc[..., :di].reshape(bsz, nh, hd).float()
+    xs = SH.reshape(xbc[..., :di], bsz, nh, hd).float()
     b = xbc[:, 0, di : di + st].float()
     c = xbc[:, 0, di + st :].float()
 
@@ -169,11 +171,11 @@ def ssm_decode_block(params, cfg: ArchConfig, x1, cache: dict):
     a = torch.exp(-torch.exp(params["A_log"])[None, :] * dt)  # (B, nh)
     xh = xs * dt[..., None]
 
-    h = a[:, :, None, None] * cache["h"] + torch.einsum("bhd,bs->bhds", xh, b)
-    y = torch.einsum("bhds,bs->bhd", h, c) + params["D"][None, :, None] * xs
-    y = y.reshape(bsz, 1, di).to(x1.dtype)
+    h = a[:, :, None, None] * cache["h"] + SH.einsum("bhd,bs->bhds", xh, b)
+    y = SH.einsum("bhds,bs->bhd", h, c) + params["D"][None, :, None] * xs
+    y = SH.reshape(y, bsz, 1, di).to(x1.dtype)
 
     y = L.rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    out = y @ params["out_proj"].to(x1.dtype)
+    out = SH.matmul(y, params["out_proj"].to(x1.dtype))
     cache["h"], cache["conv"] = h, conv_win[:, 1:, :]
     return out, cache

@@ -17,8 +17,11 @@ codebook embeddings of a (B, S, ncb) token grid and reads one head a
 codebook; the vision frontend projects precomputed patch embeddings into
 the positions before the text. `forward` remats each layer under
 `torch.utils.checkpoint` while gradients are on (the reference remats each
-repeat of a segment), and runs without the FSDP gather hints of the
-reference (ROADMAP A.7).
+repeat of a segment). Under `distributed.hints.use_hints(mesh, fsdp=True)`,
+with DTensor parameters sharded over the data axes too (the FSDP policy's),
+each layer gathers its own parameters to their tensor-parallel placements
+as it starts, inside the remat, as the reference gathers each scan
+iteration's (`_fsdp_gather`).
 
 Every entry point takes `params`, an `LMParams`, and the `ArchConfig`, as
 the reference takes its parameter tree. Parameters are made with
@@ -33,10 +36,13 @@ import functools
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import hints as H
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -277,6 +283,45 @@ def _scaled(x, cfg: ArchConfig, act_dtype):
     return x
 
 
+def _lookup(table, ids):
+    """`table[ids]`, on a DTensor table `_lookup_sharded`."""
+    return _lookup_sharded(table, ids) if isinstance(table, DTensor) else table[ids]
+
+
+def _lookup_sharded(table: DTensor, ids) -> DTensor:
+    """The vocabulary-parallel lookup of a DTensor table (V, D): each rank
+    looks its ids up in its own block of the vocabulary (the table whole
+    along D), zero for ids outside it, and the rows come back a partial sum
+    over the mesh dims that split the vocabulary; the ids keep their batch
+    split on the other mesh dims. DTensor's own rules would gather every
+    rank's ids and gradient rows (indexing) or apply a mask of one layout
+    to rows of another (`F.embedding`'s masked partial, with a table also
+    split along D)."""
+    mesh = table.device_mesh
+    ids = SH.as_dtensor(ids, mesh)
+
+    def split(p, dim):
+        return isinstance(p, Shard) and p.dim == dim
+
+    vocab = [split(p, 0) for p in table.placements]
+    t_pl = [Shard(0) if v else Replicate() for v in vocab]
+    i_pl = [Shard(0) if split(p, 0) and not v else Replicate()
+            for p, v in zip(ids.placements, vocab)]
+    # a rank's rows take gradients from its own ids alone: a partial sum
+    # over the mesh dims that split the ids
+    grad_pl = [Partial() if split(i, 0) else t for i, t in zip(i_pl, t_pl)]
+    rows = table.redistribute(mesh, t_pl).to_local(grad_placements=grad_pl)
+    loc = ids.redistribute(mesh, i_pl).to_local()
+    off, size = SH.block_offsets(table.shape, t_pl, mesh).get(0, (0, table.shape[0]))
+    at = loc.long() - off
+    mine = (at >= 0) & (at < size)
+    out = torch.where(mine[..., None], rows[at.clamp(0, size - 1)], 0.0)
+    shape = (*ids.shape, table.shape[1])
+    return DTensor.from_local(out, mesh, [Partial() if v else p for v, p in zip(vocab, i_pl)],
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def embed_inputs(params: LMParams, cfg: ArchConfig, batch, act_dtype=torch.bfloat16):
     """batch -> (x (B, S, D), positions (S,)).
 
@@ -293,14 +338,14 @@ def embed_inputs(params: LMParams, cfg: ArchConfig, batch, act_dtype=torch.bfloa
         emb = params.codebook_embed
         x = torch.zeros((*tokens.shape[:2], cfg.d_model), dtype=act_dtype, device=dev)
         for cb in range(cfg.n_codebooks):
-            x = x + emb[cb][tokens[..., cb]].to(act_dtype)
+            x = x + _lookup(emb[cb], tokens[..., cb]).to(act_dtype)
     elif cfg.modality == "vision_text":
         vp = params.vision_proj
         patches = batch["patch_embeds"].to(dev).to(act_dtype)
-        pe = L.gelu(patches @ vp["w1"].to(act_dtype)) @ vp["w2"].to(act_dtype)
-        x = torch.cat([pe, params.embed[tokens].to(act_dtype)], dim=1)
+        pe = SH.matmul(L.gelu(SH.matmul(patches, vp["w1"].to(act_dtype))), vp["w2"].to(act_dtype))
+        x = torch.cat([pe, _lookup(params.embed, tokens).to(act_dtype)], dim=1)
     else:
-        x = params.embed[tokens].to(act_dtype)
+        x = _lookup(params.embed, tokens).to(act_dtype)
     x = _scaled(x, cfg, act_dtype)
     return x, torch.arange(x.shape[1], device=dev)
 
@@ -311,17 +356,43 @@ def lm_logits(params: LMParams, cfg: ArchConfig, x) -> torch.Tensor:
     softcap."""
     x32 = x.float()
     if cfg.modality == "audio_tokens":
-        logits = torch.einsum("...d,cdv->...cv", x32, params.codebook_head.float())
+        logits = SH.einsum("...d,cdv->...cv", x32, params.codebook_head.float())
     elif cfg.tie_embeddings:
-        logits = x32 @ params.embed.float().T
+        logits = SH.matmul(x32, params.embed.float().T)
     else:
-        logits = x32 @ params.lm_head.float()
+        logits = SH.matmul(x32, params.lm_head.float())
     return L.softcap(logits, cfg.logit_softcap)
 
 
 # ---------------------------------------------------------------------------
 # forward, prefill, decode
 # ---------------------------------------------------------------------------
+
+
+def _fsdp_gather(lp):
+    """A layer's parameters as a nested dict, each DTensor redistributed to
+    its tensor-parallel placements (the FSDP placements with the data axes
+    dropped: an all-gather over them); the backward reduce-scatters the
+    gradients back. Only one layer's gathered copy is alive at a time: the
+    gather runs inside the function `torch.utils.checkpoint` wraps, so the
+    backward's recomputation gathers again."""
+    def walk(tree, prefix):
+        out = {}
+        for name, p in tree._parameters.items():
+            if isinstance(p, DTensor):
+                spec = SH._param_spec(prefix + name, tuple(p.shape), SH.axis_sizes(p.device_mesh),
+                                      stacked=False)
+                p = p.redistribute(p.device_mesh, SH.placements(spec, p.device_mesh))
+            out[name] = p
+        for name, sub in tree._modules.items():
+            out[name] = walk(sub, prefix + name + ".")
+        return out
+
+    return walk(lp, "")
+
+
+def _apply_layer_fsdp(lp, *args):
+    return _apply_layer(_fsdp_gather(lp), *args)
 
 
 # the products whose outputs remat_policy="dots" saves (the reference's
@@ -354,6 +425,8 @@ def forward(params: LMParams, cfg: ArchConfig, batch, *, act_dtype=torch.bfloat1
     remat, and the layers run as they are."""
     context_fn = _remat_context(remat_policy)
     remat = remat and torch.is_grad_enabled()
+    hints = H.get_hints()
+    apply_layer = _apply_layer_fsdp if hints is not None and hints.fsdp else _apply_layer
     x, positions = embed_inputs(params, cfg, batch, act_dtype)
     bpos = positions[None, :].expand(x.shape[0], -1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -361,10 +434,10 @@ def forward(params: LMParams, cfg: ArchConfig, batch, *, act_dtype=torch.bfloat1
     for lp, (kind, mlp_kind) in zip(params.layers, layer_descs(cfg)):
         args = (lp, params.shared_attn, cfg, kind, mlp_kind, x, bpos)
         if remat:
-            x, entry, layer_aux = _ckpt.checkpoint(_apply_layer, *args, use_reentrant=False,
+            x, entry, layer_aux = _ckpt.checkpoint(apply_layer, *args, use_reentrant=False,
                                                    context_fn=context_fn)
         else:
-            x, entry, layer_aux = _apply_layer(*args)
+            x, entry, layer_aux = apply_layer(*args)
         if layer_aux is not None:
             aux = aux + layer_aux["moe_lb_loss"]
         if return_cache:
@@ -429,7 +502,7 @@ def decode_step(params: LMParams, cfg: ArchConfig, caches, tokens, pos,
     also the post-`final_norm` hidden state (B, D) the logits were read
     from."""
     if cfg.modality == "vision_text":
-        x = params.embed[tokens.to(params.device).long()[:, None]].to(act_dtype)
+        x = _lookup(params.embed, tokens.to(params.device).long()[:, None]).to(act_dtype)
         x = _scaled(x, cfg, act_dtype)
     else:
         x, _ = embed_inputs(params, cfg, {"tokens": tokens[:, None]}, act_dtype)

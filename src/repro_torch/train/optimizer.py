@@ -20,6 +20,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 class AdamWState(NamedTuple):
@@ -67,10 +68,22 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in tree.values()))
 
 
+def _to_placements(g, like):
+    if isinstance(g, DTensor) and isinstance(like, DTensor) and g.placements != like.placements:
+        return g.redistribute(like.device_mesh, like.placements)
+    return g
+
+
 @torch.no_grad()
 def apply(cfg: AdamWConfig, state: AdamWState, params: dict, grads: dict):
     """One AdamW update of `params` (written in place). Returns (params,
-    new state, metrics {"grad_norm" (before clipping), "lr"})."""
+    new state, metrics {"grad_norm" (before clipping), "lr"}).
+
+    DTensor gradients are first brought to their moments' placements: the
+    one reduction of a partial sum (an all-reduce, or a reduce-scatter
+    where the moments shard over the data axes as ZeRO-1 and FSDP place
+    them), where each later use would reduce again."""
+    grads = {name: _to_placements(g, state.mu[name]) for name, g in grads.items()}
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
 

@@ -12,9 +12,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.compression import compressed_psum_mean
 from repro_torch.models import transformer as T
 from repro_torch.train import optimizer as O
@@ -25,10 +27,35 @@ def _chunk_nll(params, cfg: ArchConfig, hidden, targets) -> torch.Tensor:
     entry taken by indexing (whose backward has a deterministic CUDA
     path), targets of -1 masked out."""
     logits = T.lm_logits(params, cfg, hidden)
-    lp = torch.log_softmax(logits, dim=-1).reshape(-1, logits.shape[-1])
-    t = targets.reshape(-1).long()
+    lp = SH.reshape(torch.log_softmax(logits, dim=-1), -1, logits.shape[-1])
+    t = SH.reshape(targets, -1).long()
+    if isinstance(lp, DTensor):
+        return _picked_nll_sharded(lp, t)
     nll = -lp[torch.arange(t.shape[0], device=t.device), t.clamp_min(0)]
     return torch.where(t >= 0, nll, 0.0).sum()
+
+
+def _picked_nll_sharded(lp: DTensor, t) -> DTensor:
+    """`_chunk_nll`'s sum on DTensors, each rank over its own rows (DTensor's
+    rule for the row-and-column index would gather every rank's rows of
+    `lp` first): `lp` (N, V) and the targets (N,) go to one row sharding,
+    over every mesh dim either splits its rows over, and the local sums
+    come back as a partial sum over those mesh dims. (`lp` is whole along
+    the vocabulary: the log-softmax needs it so.)"""
+    mesh = lp.device_mesh
+    t = SH.as_dtensor(t, mesh)
+
+    def split(p):
+        return isinstance(p, Shard) and p.dim == 0
+
+    rows = [Shard(0) if split(a) or split(b) else Replicate()
+            for a, b in zip(lp.placements, t.placements)]
+    t_l = t.redistribute(mesh, rows).to_local()
+    lp_l = lp.redistribute(mesh, rows).to_local()
+    nll = -lp_l[torch.arange(t_l.shape[0], device=t_l.device), t_l.clamp_min(0)]
+    nll = torch.where(t_l >= 0, nll, 0.0).sum()
+    return DTensor.from_local(nll, mesh, [Partial() if isinstance(p, Shard) else p for p in rows],
+                              run_check=False)
 
 
 def _ce_from_hidden(params, cfg: ArchConfig, hidden, targets, chunk: int = 512):

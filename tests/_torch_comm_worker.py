@@ -17,7 +17,17 @@ repro_torch only. Suites:
     gradients of sum(y^2) and the drop fraction; `_permute_ffn` with this
     rank's experts at two capacities, and its routing inputs;
   * mesh: `sharding.placements` through `distribute_tensor` on (2, 2) and
-    (1, 2, 2) meshes, and `make_production_mesh` under the override.
+    (1, 2, 2) meshes, and `make_production_mesh` under the override;
+  * fsdp: reduced `FSDP_ARCH`'s loss and gradients and one train step
+    under `use_hints(mesh, fsdp=True)` on a (2, 2) mesh, the parameters and
+    AdamW moments placed by the FSDP specs (`sharding.with_shardings`), the
+    batch over the data axis; the gradients, the stepped parameters and
+    the moments gathered whole. Then the same loss and gradients (without
+    the load-balance term) of each `FSDP_CASES` config, with this rank's
+    load-balance sum; and one decode step of reduced `FSDP_ARCH` under
+    `use_hints(mesh)`, the parameters placed by the TP specs and the
+    prefilled cache by the cache rules, with its logits and the written
+    cache gathered whole.
 """
 
 from __future__ import annotations
@@ -32,10 +42,12 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
-from _torch_gloo import (COMP_CASES, MOE_CAPACITY, MOE_MESHES, MOE_VARIANTS, PERMUTE_CAPACITY,
-                         PLACEMENTS, STEP_ARCH, STEP_BATCH, STEP_OPT, STEP_SEQ, comp_input,
-                         mesh_name, moe_cfg_kwargs, moe_x)
+from _torch_gloo import (COMP_CASES, DECODE_POS, DECODE_SMAX, FSDP_ARCH, FSDP_BATCH, FSDP_CASES,
+                         FSDP_MESH, FSDP_SEQ, MOE_CAPACITY, MOE_MESHES, MOE_VARIANTS,
+                         PERMUTE_CAPACITY, PLACEMENTS, STEP_ARCH, STEP_BATCH, STEP_OPT, STEP_SEQ,
+                         comp_input, fsdp_case_cfg, mesh_name, moe_cfg_kwargs, moe_x)
 from repro_torch.configs import get_arch, reduced
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data import pipeline as PIPE
@@ -150,7 +162,76 @@ def mesh(rank: int, world: int) -> tuple[dict, dict]:
     return arrays, info
 
 
-SUITES = {"compression": compression, "moe": moe, "mesh": mesh}
+def _placed(cfg, mesh, fsdp: bool):
+    """Seed 0's parameters and step 0's batch, placed by the specs."""
+    sizes = SH.axis_sizes(mesh)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    params = SH.with_shardings(params, SH.param_shardings(sizes, params, fsdp=fsdp), mesh)
+    batch = PIPE.batch_for_step(cfg, 0, FSDP_BATCH, FSDP_SEQ, device="cpu")
+    return params, SH.with_shardings(batch, SH.batch_shardings(sizes, batch), mesh)
+
+
+def _local(v: torch.Tensor) -> np.ndarray:
+    return (v.to_local() if isinstance(v, DTensor) else v).detach().numpy()
+
+
+def fsdp(rank: int, world: int) -> tuple[dict, dict]:
+    cfg = reduced(get_arch(FSDP_ARCH))
+    mesh = make_debug_mesh(FSDP_MESH, device="cpu")
+    sizes = SH.axis_sizes(mesh)
+    params, batch = _placed(cfg, mesh, fsdp=True)
+    arrays, info = {}, {}
+    with H.use_hints(mesh, fsdp=True):
+        loss, _, grads = TS.loss_and_grads(params, cfg, batch, act_dtype=torch.float32)
+        opt = O.init({name: p.full_tensor() for name, p in params.named_parameters()})
+        opt = SH.with_shardings(opt, SH.opt_state_shardings(sizes, opt, fsdp=True), mesh)
+        step = TS.make_train_step(cfg, O.AdamWConfig(**STEP_OPT), act_dtype=torch.float32)
+        state, metrics = step(TS.TrainState(params, opt), batch)
+    arrays["loss"] = loss.full_tensor().numpy()
+    arrays["step_loss"] = metrics["loss"].full_tensor().numpy()
+    arrays["grad_norm"] = metrics["grad_norm"].full_tensor().numpy()
+    for name, g in grads.items():
+        arrays[f"grad/{name}"] = g.full_tensor().numpy()
+    for name, p in state.params.named_parameters():
+        info[name] = [str(pl) for pl in p.placements]
+        arrays[f"param/{name}"] = p.full_tensor().numpy()
+        arrays[f"mu/{name}"] = state.opt.mu[name].full_tensor().numpy()
+        arrays[f"nu/{name}"] = state.opt.nu[name].full_tensor().numpy()
+    arrays["coord"] = np.asarray(mesh.get_coordinate())
+
+    for case in FSDP_CASES:
+        ccfg = fsdp_case_cfg(case)
+        cparams, cbatch = _placed(ccfg, mesh, fsdp=True)
+        with H.use_hints(mesh, fsdp=True):
+            loss, aux, grads = TS.loss_and_grads(cparams, ccfg, cbatch, act_dtype=torch.float32,
+                                                 aux_weight=0.0)
+        arrays[f"{case}/loss"] = loss.full_tensor().numpy()
+        arrays[f"{case}/moe_aux"] = _local(aux["moe_aux"])
+        for name, g in grads.items():
+            arrays[f"{case}/grad/{name}"] = g.full_tensor().numpy()
+
+    # one decode step on a prefilled cache
+    dparams = T.init_params(cfg, seed=0, device="cpu")
+    prompt = PIPE.batch_for_step(cfg, 0, FSDP_BATCH, FSDP_SEQ, device="cpu")
+    with torch.no_grad():
+        _, caches, _ = T.prefill(dparams, cfg, prompt, s_max=DECODE_SMAX, act_dtype=torch.float32)
+    dparams = SH.with_shardings(dparams, SH.param_shardings(sizes, dparams), mesh)
+    caches = SH.with_shardings(caches, SH.cache_shardings(sizes, caches), mesh)
+    tokens = prompt["tokens"][:, -1].contiguous()
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32)
+    tokens, pos = (SH.with_shardings(t, (SH.data_axes(sizes),), mesh) for t in (tokens, pos))
+    with H.use_hints(mesh), torch.no_grad():
+        logits, caches = T.decode_step(dparams, cfg, caches, tokens, pos, act_dtype=torch.float32)
+    arrays["decode/logits"] = logits.full_tensor().numpy()
+    for i, cache in enumerate(caches):
+        info[f"decode/cache{i}"] = {k: [pl.dim if isinstance(pl, Shard) else None
+                                        for pl in v.placements] for k, v in cache.items()}
+        for k, v in cache.items():
+            arrays[f"decode/cache{i}/{k}"] = v.full_tensor().numpy()
+    return arrays, info
+
+
+SUITES = {"compression": compression, "moe": moe, "mesh": mesh, "fsdp": fsdp}
 
 
 def main() -> None:

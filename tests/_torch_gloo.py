@@ -43,6 +43,18 @@ MOE_MESHES = {2: ((1, 2),), 4: ((2, 2), (1, 4))}  # world -> (data, model) meshe
 STEP_ARCH, STEP_BATCH, STEP_SEQ = "gemma3-1b", 2, 16
 STEP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 
+# the FSDP train step: reduced gemma3-1b (dense), fp32, the global batch on
+# every rank, sharded over the data axis of a (2, 2) mesh
+FSDP_ARCH, FSDP_BATCH, FSDP_SEQ, FSDP_MESH = "gemma3-1b", 4, 16, (2, 2)
+# the further DTensor paths on the same mesh: name -> arch. "moe" takes the
+# expert-parallel block under FSDP placements, "ssm" the SSD scan; the MoE's
+# capacity leaves no drops, so both paths route alike
+FSDP_CASES = {"moe": "deepseek-moe-16b", "ssm": "mamba2-130m"}
+# one decode step of reduced FSDP_ARCH on a cache of DECODE_SMAX positions,
+# placed by the cache rules (batch over data, sequence over model): each row
+# at its own position, in both sequence blocks
+DECODE_SMAX, DECODE_POS = 32, (16, 3, 21, 9)
+
 # placements: (mesh shape, mesh axes, spec, tensor shape)
 PLACEMENTS = (
     ((2, 2), ("data", "model"), (), (8, 12)),
@@ -70,6 +82,16 @@ def moe_cfg_kwargs(variant: str, capacity: float) -> dict:
     return dict(name="t", family="moe", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
                 d_head=8, d_ff=64, vocab=64, n_experts=e, top_k=k, d_expert=16,
                 n_shared_experts=shared, moe_capacity_factor=capacity)
+
+
+def fsdp_case_cfg(case: str):
+    """The reduced config of an `FSDP_CASES` case (the port's ArchConfig)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+
+    cfg = reduced(get_arch(FSDP_CASES[case]))
+    return dataclasses.replace(cfg, moe_capacity_factor=MOE_CAPACITY) if cfg.n_experts else cfg
 
 
 def moe_x() -> np.ndarray:
