@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import device as _device
+from repro_torch import trace
 from repro_torch.core import pools as P
 from repro_torch.core import vecstore as VS
 from repro_torch.core.draws import Draws
@@ -169,15 +170,18 @@ def update_round(x, pool: P.Pool, draws, cfg: GRNNDConfig, t1: int = 0, t2: int 
     flat requests through `group_requests`.
     """
     n = pool.n
-    if cfg.order == "disordered":
-        dst, src, dij, killed = _round_pair_matrices(x, pool, draws, cfg, t1, t2)
-        staged_i, staged_d = P.stage_request_matrix(dst, src, dij, n, cfg.cap)
-    else:
-        redirect, killed = _sorted_requests_chunk(x, pool.ids, pool.dists, cfg)
-        staged_i, staged_d = P.group_requests(redirect, n, cfg.cap)
-    surv_ids = torch.where(killed, -1, pool.ids)
-    surv_dists = torch.where(killed, torch.inf, pool.dists)
-    return P.merge_into(P.Pool(surv_ids, surv_dists), staged_i, staged_d)
+    with trace.span("grnnd.round"):
+        if cfg.order == "disordered":
+            with trace.span("grnnd.propagate"):
+                dst, src, dij, killed = _round_pair_matrices(x, pool, draws, cfg, t1, t2)
+            staged_i, staged_d = P.stage_request_matrix(dst, src, dij, n, cfg.cap)
+        else:
+            with trace.span("grnnd.propagate"):
+                redirect, killed = _sorted_requests_chunk(x, pool.ids, pool.dists, cfg)
+            staged_i, staged_d = P.group_requests(redirect, n, cfg.cap)
+        surv_ids = torch.where(killed, -1, pool.ids)
+        surv_dists = torch.where(killed, torch.inf, pool.dists)
+        return P.merge_into(P.Pool(surv_ids, surv_dists), staged_i, staged_d)
 
 
 def _reverse_requests(ids, dists, rho: float, row0: int = 0) -> P.Requests:
@@ -189,6 +193,7 @@ def _reverse_requests(ids, dists, rho: float, row0: int = 0) -> P.Requests:
     dev = ids.device
     rows = (row0 + torch.arange(n, dtype=torch.int32, device=dev))[:, None].expand(n, r)
     deg = (ids >= 0).sum(-1)[:, None].to(torch.float32)
+    trace.count("grnnd.reverse")  # ρ is copied from the host: the stream synchronizes
     take = torch.ceil(torch.tensor(rho, dtype=torch.float32, device=dev) * deg).to(torch.int32)
     slot = torch.arange(r, dtype=torch.int32, device=dev)[None, :]
     sel = (slot < take) & (ids >= 0)
@@ -206,7 +211,8 @@ def reverse_edge_round(pool: P.Pool, cfg: GRNNDConfig, rho: float | None = None)
     ceil(ρ · degree) slots.
     """
     rho = cfg.rho if rho is None else rho
-    return P.insert_requests(pool, _reverse_requests(pool.ids, pool.dists, rho), cap=cfg.cap)
+    with trace.span("grnnd.reverse"):
+        return P.insert_requests(pool, _reverse_requests(pool.ids, pool.dists, rho), cap=cfg.cap)
 
 
 def check_order(cfg: GRNNDConfig) -> None:
@@ -219,7 +225,8 @@ def _build(x, cfg: GRNNDConfig, draws, device, stats: list | None) -> P.Pool:
     dev = _device.resolve(device)
     x = VS.to_device(x, dev)
     draws = draws if draws is not None else Draws(0, dev)
-    pool = P.init_random(draws, x, cfg.s, cfg.r)
+    with trace.span("grnnd.init"):
+        pool = P.init_random(draws, x, cfg.s, cfg.r)
     for t1 in range(cfg.t1):
         for t2 in range(cfg.t2):
             new_pool = update_round(x, pool, draws, cfg, t1, t2)

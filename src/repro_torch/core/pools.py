@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.core import vecstore as VS
 from repro_torch.kernels import ops
 
@@ -109,12 +110,14 @@ def concat_requests(*reqs: Requests) -> Requests:
 
 def group_requests(req: Requests, n: int, cap: int, drop_self: bool = True):
     """Stage a flat Requests batch into per-destination (N, cap) buffers."""
-    return _stage(req.dst, req.src, req.dist, n, cap, drop_self=drop_self)
+    with trace.span("pools.stage"):
+        return _stage(req.dst, req.src, req.dist, n, cap, drop_self=drop_self)
 
 
 def stage_request_matrix(dst, src, dist, n: int, cap: int):
     """Stage a round's (N, P) request matrices: -> ids / dists (N, cap)."""
-    return _stage(dst.reshape(-1), src.reshape(-1), dist.reshape(-1), n, cap)
+    with trace.span("pools.stage"):
+        return _stage(dst.reshape(-1), src.reshape(-1), dist.reshape(-1), n, cap)
 
 
 def _stage(dst, src_in, dist_in, n: int, cap: int, drop_self: bool = True):
@@ -171,9 +174,10 @@ def _stage(dst, src_in, dist_in, n: int, cap: int, drop_self: bool = True):
 
 def merge_into(pool: Pool, cand_ids: torch.Tensor, cand_dists: torch.Tensor) -> Pool:
     """pool ∪ candidates -> R closest unique (the WARP_INSERT analogue)."""
-    ids = torch.cat([pool.ids, cand_ids], dim=-1)
-    dists = torch.cat([pool.dists, cand_dists], dim=-1)
-    return Pool(*ops.topr_merge(ids, dists, pool.r))
+    with trace.span("pools.merge"):
+        ids = torch.cat([pool.ids, cand_ids], dim=-1)
+        dists = torch.cat([pool.dists, cand_dists], dim=-1)
+        return Pool(*ops.topr_merge(ids, dists, pool.r))
 
 
 def insert_requests(pool: Pool, req: Requests, cap: int | None = None) -> Pool:

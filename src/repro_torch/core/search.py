@@ -13,7 +13,11 @@ neighbors; a query stops when its whole list is expanded.
     with `visited_cap >= N` the table is collision-free and the search
     equals the dense one.
   * The JAX `while_loop` becomes a Python loop that asks the card whether
-    any query still has a frontier: one host sync per step.
+    any query still has a frontier. Each iteration is a `search.step`
+    span (`repro_torch.trace`), and each place the host waits for the card
+    is a counted site (`trace.SYNCS`): the frontier test, once an
+    iteration; the write of the expanded flag, once a step that expands;
+    the entry's gather, once a call.
   * The dataset may be a `core.vecstore.VectorStore` (bf16 / int8 rows,
     dequantized inside `search_expand`); `rescore=` re-ranks the final ef
     candidates against fp32 rows, the two-tier layout of the dynamic
@@ -41,6 +45,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import device as _device
+from repro_torch import trace
 from repro_torch.core import labels as L
 from repro_torch.core import vecstore as VS
 from repro_torch.kernels import ops
@@ -133,6 +138,7 @@ def _traverse(x, graph_ids, queries, entry, valid, vwords, fwords, ef, max_steps
     qrows = torch.arange(q, device=dev)
     filtered = fwords is not None
 
+    trace.count("search.entry")  # a gather by a 0-dim index reads the index back
     d_entry = ops.rowwise_sqdist(queries, VS.take(x, entry).expand(q, -1).contiguous())
     if valid is not None:
         # a dead entry contributes nothing; every later insertion into the
@@ -167,50 +173,59 @@ def _traverse(x, graph_ids, queries, entry, valid, vwords, fwords, ef, max_steps
         lookup = vstate
 
     for _ in range(max_steps):
-        frontier = (cand_ids >= 0) & ~expanded
-        if not bool(frontier.any()):  # the one host sync per step
-            break
-        frontier_d = torch.where(frontier, cand_dists, torch.inf)
-        sel = frontier_d.argmin(-1)  # (Q,)
-        active = torch.isfinite(frontier_d.gather(1, sel[:, None])[:, 0])
-        sel_id = cand_ids[qrows, sel]
-        expanded[qrows, sel] = True
+        with trace.span("search.step"):
+            with trace.span("search.frontier"):
+                frontier = (cand_ids >= 0) & ~expanded
+                trace.count("search.frontier")
+                more = bool(frontier.any())  # the host waits for the card
+            if not more:
+                break
+            with trace.span("search.beam"):
+                frontier_d = torch.where(frontier, cand_dists, torch.inf)
+                sel = frontier_d.argmin(-1)  # (Q,)
+                active = torch.isfinite(frontier_d.gather(1, sel[:, None])[:, 0])
+                sel_id = cand_ids[qrows, sel]
+                trace.count("search.expanded")  # the host's True is copied to the card
+                expanded[qrows, sel] = True
 
-        nbrs = graph_ids[sel_id.clamp_min(0).long()]  # (Q, R)
-        nbrs = torch.where(active[:, None] & (nbrs >= 0), nbrs, -1)
-        out = ops.search_expand(x, queries, nbrs, lookup, valid, vwords, fwords)
-        nbrs, dq, fresh = out[:3]
-        if visited == "dense":
-            idx = nbrs.clamp_min(0).long()
-            fresh = fresh & ~vstate.gather(1, idx).bool()
-            vstate.scatter_reduce_(1, idx, fresh.to(torch.uint8), reduce="amax")
-        else:
-            _table_insert(vstate, torch.where(fresh, nbrs, -1))
+            with trace.span("search.expand"):
+                nbrs = graph_ids[sel_id.clamp_min(0).long()]  # (Q, R)
+                nbrs = torch.where(active[:, None] & (nbrs >= 0), nbrs, -1)
+                out = ops.search_expand(x, queries, nbrs, lookup, valid, vwords, fwords)
+                nbrs, dq, fresh = out[:3]
+            with trace.span("search.visited"):
+                if visited == "dense":
+                    idx = nbrs.clamp_min(0).long()
+                    fresh = fresh & ~vstate.gather(1, idx).bool()
+                    vstate.scatter_reduce_(1, idx, fresh.to(torch.uint8), reduce="amax")
+                else:
+                    _table_insert(vstate, torch.where(fresh, nbrs, -1))
 
-        dq = torch.where(fresh, dq, torch.inf)
-        n_exp += fresh.sum(-1, dtype=torch.int32)
+            with trace.span("search.beam"):
+                dq = torch.where(fresh, dq, torch.inf)
+                n_exp += fresh.sum(-1, dtype=torch.int32)
 
-        # keep the ef best of (candidates ∪ fresh neighbors); candidates come
-        # first, so a re-entering duplicate keeps its original beam slot. The
-        # beam takes fresh neighbors whatever the predicate says.
-        all_ids = torch.cat([cand_ids, torch.where(fresh, nbrs, -1)], dim=-1)
-        all_d = torch.cat([cand_dists, dq], dim=-1)
-        new_ids, new_d = ops.topr_merge(all_ids, all_d, ef)
+                # keep the ef best of (candidates ∪ fresh neighbors); candidates
+                # come first, so a re-entering duplicate keeps its original beam
+                # slot. The beam takes fresh neighbors whatever the predicate says.
+                all_ids = torch.cat([cand_ids, torch.where(fresh, nbrs, -1)], dim=-1)
+                all_d = torch.cat([cand_dists, dq], dim=-1)
+                new_ids, new_d = ops.topr_merge(all_ids, all_d, ef)
 
-        # an entry is expanded iff its id matches an expanded candidate
-        # (the -2 sentinel keeps empty slots from matching each other)
-        exp_src = torch.where(expanded & (cand_ids >= 0), cand_ids, -2)
-        expanded = (new_ids[:, :, None] == exp_src[:, None, :]).any(-1) | (new_ids < 0)
-        cand_ids, cand_dists = new_ids, new_d
-        if filtered:
-            # a vertex enters the result heap once, at its fresh sighting,
-            # with its real distance, iff the predicate admits it
-            keep = fresh & out[3]
-            res_ids, res_dists = ops.topr_merge(
-                torch.cat([res_ids, torch.where(keep, nbrs, -1)], dim=-1),
-                torch.cat([res_dists, torch.where(keep, dq, torch.inf)], dim=-1),
-                ef,
-            )
+                # an entry is expanded iff its id matches an expanded candidate
+                # (the -2 sentinel keeps empty slots from matching each other)
+                exp_src = torch.where(expanded & (cand_ids >= 0), cand_ids, -2)
+                expanded = (new_ids[:, :, None] == exp_src[:, None, :]).any(-1) | (new_ids < 0)
+                cand_ids, cand_dists = new_ids, new_d
+                if filtered:
+                    # a vertex enters the result heap once, at its fresh sighting,
+                    # with its real distance, iff the predicate admits it
+                    keep = fresh & out[3]
+                    res_ids, res_dists = ops.topr_merge(
+                        torch.cat([res_ids, torch.where(keep, nbrs, -1)], dim=-1),
+                        torch.cat([res_dists, torch.where(keep, dq, torch.inf)], dim=-1),
+                        ef,
+                    )
 
     if filtered:
         return res_ids, res_dists, n_exp

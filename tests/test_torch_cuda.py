@@ -40,13 +40,18 @@ the chunked SSD scan against the recurrence at zamba2's head shapes; one
 training step of each of the ten families at reduced() width against the
 same step on the CPU port (loss within 1e-4, gradients within 1e-3 of each
 leaf's largest magnitude), and resumed training bitwise uninterrupted
-training under `torch.use_deterministic_algorithms`.
+training under `torch.use_deterministic_algorithms`; and a build and a
+hashed search that wait for the card (`torch.cuda.set_sync_debug_mode`)
+exactly as often as they pass their counted sync sites
+(`repro_torch.trace.SYNCS`).
 Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
 summation order; the dequant itself is bitwise the plain version's);
 pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition cancellation);
 topr_merge, the visited tables and every integer output exactly, except rng_round's hit test
 within that tolerance of its threshold.
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -69,6 +74,7 @@ from repro_torch.core import (
     recall_at_k,
     search,
 )
+from repro_torch import trace
 from repro_torch.core import corpus_shard as CS
 from repro_torch.core.labels import pack_ids
 from repro_torch.core.search import _table_insert
@@ -936,3 +942,50 @@ def test_resumed_training_on_the_card_is_bitwise(dev, tmp_path, monkeypatch):
         assert torch.equal(x, y), n
     for n, x in a.opt.mu.items():
         assert torch.equal(x, b.opt.mu[n]) and torch.equal(a.opt.nu[n], b.opt.nu[n]), n
+
+
+def _sync_warnings(fn):
+    """(fn(), the synchronizing operations it ran) under
+    `torch.cuda.set_sync_debug_mode("warn")`, each warning kept."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [w for w in caught if "called a synchronizing" in str(w.message)]
+
+
+def _counted_syncs(fn):
+    """(fn(), its sync warnings, the passes of each counted sync site)."""
+    before = trace.counts()
+    out, warned = _sync_warnings(fn)
+    after = trace.counts()
+    return out, warned, {k[len("host_sync/"):]: after[k] - before[k] for k in after
+                         if k.startswith("host_sync/")}
+
+
+def test_build_and_hashed_search_sync_only_at_counted_sites(dev):
+    """A build and a hashed search wait for the card exactly as often as
+    their counted sync sites (`trace.SYNCS`) are passed: once a
+    reverse-edge round; once a loop iteration, once an expanding step and
+    once a call."""
+    g = torch.Generator(dev).manual_seed(3)
+    x = synthetic.make_preset(g, "sift-like", 4000)
+    queries = synthetic.queries_from(g, x, 200)
+    cfg = GRNNDConfig(s=12, r=24, t1=3, t2=3, pairs_per_vertex=24, chunk_size=1000)
+    draws = Draws(1, dev)
+    pool, warned, passes = _counted_syncs(lambda: build_graph(x, cfg, draws=draws, device=dev))
+    where = sorted({(w.filename, w.lineno) for w in warned})
+    assert passes["grnnd.reverse"] == cfg.t1 - 1
+    assert len(warned) == sum(passes.values()), where
+    res, warned, passes = _counted_syncs(
+        lambda: search(x, pool.ids, queries, k=10, ef=48, visited="hashed", device=dev)
+    )
+    where = sorted({(w.filename, w.lineno) for w in warned})
+    assert passes["search.frontier"] == passes["search.expanded"] + 1 > 1
+    assert passes["search.entry"] == 1 and passes["grnnd.reverse"] == 0
+    assert len(warned) == sum(passes.values()), (passes, where)
+    assert int(res.n_expanded.min()) > 0
