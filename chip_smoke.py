@@ -21,7 +21,8 @@ Phases, each printing its own lines with seconds:
      of the corpus-sharded search runs it), with kernel / plain /
      library times and the least time the card could take (bytes over
      3.35 TB/s or fp32 operations over 67 TFLOP/s); `topr_merge` also at the
-     beam merges' shapes (W = 112, 176, 448, 560), `pairwise_sqdist` also at
+     beam merges' shapes (W = 112, 176, 448, 560) and, carrying the expanded
+     flags as the search does, at W = 112, `pairwise_sqdist` also at
      the medoid's M = 1, with cuBLAS SGEMM (TF32 off) timed beside the
      ground-truth row as the fp32 GEMM yardstick, and `gather_sqdist` beside a
      second bound on its log line, its neighbor rows as gathered (its library
@@ -346,8 +347,8 @@ DYN_CFG = DynamicConfig(
 DYN_RECALL_FLOOR = 0.50  # the static fp32 graph reads 0.638 here
 # the kernels each path must launch (launch-count names, kernels/_build.py)
 MAIN_KERNELS = (
-    "rng_round", "topr_merge", "search_expand", "rowwise_sqdist", "pairwise_sqdist",
-    "visited_insert",
+    "rng_round", "topr_merge", "topr_merge/flags", "search_expand", "rowwise_sqdist",
+    "pairwise_sqdist", "visited_insert",
 )
 DYN_KERNELS = (
     "gather_sqdist/int8",
@@ -435,7 +436,7 @@ SERVE_KERNELS = {
         "rng_round/int8", "search_expand/int8+valid", "topr_merge", "rowwise_sqdist",
         "visited_insert",
     ),
-    "sharded": ("search_expand", "topr_merge", "rowwise_sqdist", "visited_insert"),
+    "sharded": ("search_expand", "topr_merge/flags", "rowwise_sqdist", "visited_insert"),
     # the CLI's build_index of the sift-small index
     "build": (
         "rng_round", "topr_merge", "search_expand", "rowwise_sqdist", "pairwise_sqdist",
@@ -446,7 +447,7 @@ SERVE_KERNELS = {
 # `--device cuda`, and the kernels each launches besides SERVE_CLI_EVERY
 # (the entry distance, the beam merge, the brute-force recall); the stats
 # line of every run must parse
-SERVE_CLI_EVERY = ("topr_merge", "rowwise_sqdist", "pairwise_sqdist")
+SERVE_CLI_EVERY = ("topr_merge/flags", "rowwise_sqdist", "pairwise_sqdist")
 SERVE_CLI = (
     ("static", ["--visited", "hashed"], ("search_expand", "visited_insert")),
     ("filtered", ["--filter-labels", "100", "--selectivity", "0.1"], ("search_expand+filter",)),
@@ -549,6 +550,8 @@ ROW_PATH.update({"search_expand+filter": "filtered", "search_expand/int8+valid+f
 # launch counter (their rows say so under "launches_of")
 BEAM_MERGES = ((64, "main"), (128, "main"), (400, "filtered"), (512, "filtered"))  # (ef, path), W = ef + R
 ROW_PATH.update({f"topr_merge[W={ef + SIFT1M.build.r}]": path for ef, path in BEAM_MERGES})
+# the first of them again as the search launches it, carrying the expanded flags
+ROW_PATH[f"topr_merge/flags[W={BEAM_MERGES[0][0] + SIFT1M.build.r}]"] = "main"
 ROW_PATH["pairwise_sqdist[M=1]"] = "main"  # the medoid's shape; shares the counter
 # the corpus path's shapes of B6 (fp32 merge pairs) and B3 (one shard's step)
 ROW_PATH.update({"gather_sqdist[merge]": "corpus", "search_expand[shard]": "corpus"})
@@ -888,6 +891,11 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
             raise AssertionError("topr_merge differs from its plain version")
         return 0.0, "; ids and dists equal"
 
+    def flags_check(got, want):
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("topr_merge/flags differs from its plain version")
+        return 0.0, "; ids, dists and flags equal"
+
     b, w = merge_ids.shape
     measure(
         "topr_merge",
@@ -930,6 +938,23 @@ def phase_kernels(x, queries, draws, cfg) -> list[dict]:
             20,
             launches_of="topr_merge",
         )
+        if ef == BEAM_MERGES[0][0]:
+            # the candidates' expanded flags (half set), carried through
+            fl = torch.rand((q, ef), generator=gm, device=dev) < 0.5
+            measure(
+                f"topr_merge/flags[W={wb}]",
+                "src/repro_torch/kernels/csrc/topr_merge.cu",
+                "src/repro/kernels/topr_merge.py:58",
+                lambda mi=mi, md=md, ef=ef, fl=fl: topr_merge(mi, md, ef, fl),
+                lambda mi=mi, md=md, ef=ef, fl=fl: ref.topr_merge_ref(mi, md, ef, fl),
+                flags_check,
+                q * wb * 8 + q * ef * 8 + 2 * q * ef,  # and a flag byte in and out a slot
+                q * wb * math.log2(wb),
+                None,
+                20,
+                launches_of="topr_merge/flags",
+            )
+            del fl
         del bi, bd, ei, ed, mi, md
 
     def expand_check(got, want):
@@ -1983,11 +2008,12 @@ class PlainCheck:
         self._held(name, q, close(got[1][live], want[1][live], f"{name} at Q={q}"))
         return got
 
-    def _topr_merge(self, real, ids, dists, r):
-        got, want = real(ids, dists, r), self._plain(real, ids, dists, r)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"topr_merge at {tuple(ids.shape)}: differs from the plain version")
-        self._held("topr_merge", ids.shape[0])
+    def _topr_merge(self, real, ids, dists, r, flags=None):
+        got, want = real(ids, dists, r, flags), self._plain(real, ids, dists, r, flags)
+        name = "topr_merge" if flags is None else "topr_merge/flags"
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} at {tuple(ids.shape)}: differs from the plain version")
+        self._held(name, ids.shape[0])
         return got
 
     def _rowwise_sqdist(self, real, x, y):

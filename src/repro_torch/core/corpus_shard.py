@@ -414,10 +414,7 @@ def _corpus_body(
 
         all_ids = torch.cat([cand_ids, torch.where(fresh, nbrs, -1)], dim=-1)
         all_d = torch.cat([cand_dists, dq], dim=-1)
-        new_ids, new_d = ops.topr_merge(all_ids, all_d, ef)
-        exp_src = torch.where(expanded & (cand_ids >= 0), cand_ids, -2)
-        expanded = (new_ids[:, :, None] == exp_src[:, None, :]).any(-1) | (new_ids < 0)
-        cand_ids, cand_dists = new_ids, new_d
+        cand_ids, cand_dists, expanded = ops.topr_merge(all_ids, all_d, ef, flags=expanded)
         if filtered:
             keep = fresh & allowed
             res_ids, res_dists = ops.topr_merge(

@@ -210,13 +210,10 @@ def _traverse(x, graph_ids, queries, entry, valid, vwords, fwords, ef, max_steps
                 # slot. The beam takes fresh neighbors whatever the predicate says.
                 all_ids = torch.cat([cand_ids, torch.where(fresh, nbrs, -1)], dim=-1)
                 all_d = torch.cat([cand_dists, dq], dim=-1)
-                new_ids, new_d = ops.topr_merge(all_ids, all_d, ef)
-
-                # an entry is expanded iff its id matches an expanded candidate
-                # (the -2 sentinel keeps empty slots from matching each other)
-                exp_src = torch.where(expanded & (cand_ids >= 0), cand_ids, -2)
-                expanded = (new_ids[:, :, None] == exp_src[:, None, :]).any(-1) | (new_ids < 0)
-                cand_ids, cand_dists = new_ids, new_d
+                # each entry keeps the expanded flag of the slot it came from:
+                # the candidates' ids are unique, so a surviving fresh neighbor
+                # is new to the beam (unexpanded); an empty slot counts as expanded
+                cand_ids, cand_dists, expanded = ops.topr_merge(all_ids, all_d, ef, flags=expanded)
                 if filtered:
                     # a vertex enters the result heap once, at its fresh sighting,
                     # with its real distance, iff the predicate admits it

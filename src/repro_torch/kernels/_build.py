@@ -17,7 +17,8 @@ a finished build is reused. `nvcc` is taken from `$CUDA_HOME/bin` (default
 error code and counts the launch in `LAUNCHES` under the variant's name:
 the kernel's name, then `/bf16` or `/int8` for a quantized storage rung,
 `+valid` for the tombstone mask and `+filter` for the label predicate
-(`search_expand/int8+valid+filter`).
+(`search_expand/int8+valid+filter`); the beam merge that carries the
+expanded flags counts as `topr_merge/flags`.
 """
 
 from __future__ import annotations

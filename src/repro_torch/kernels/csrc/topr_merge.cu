@@ -30,6 +30,10 @@
 //   6. rank i goes to output slot i: the id and distance are read back from
 //      the row by position, empties become (-1, +inf), 16-byte stores where
 //      aligned.
+// The beam merge's variant (FLAGS) also carries each of the first F entries'
+// expanded flag to the slot it lands in, read back by the same position: a
+// survivor past F, new to the row, gets 0; an empty slot gets 1. Without
+// FLAGS the flag operands are never touched and the kernel is the plain one.
 // The work is integer compares and selects on 64-bit keys, and they, not the
 // bytes, bound the kernel at these shapes (PERF.md). NaN and infinite
 // distances are treated as empty slots (the oracle sorts NaN last); the
@@ -128,21 +132,32 @@ __device__ __forceinline__ void bitonic_sort(u64 (&key)[E], int g, u64* xbuf) {
   }
 }
 
+// The flag operands of the FLAGS variant: the row's first F input flags
+// and its r output flags.
+struct RowFlags {
+  const uint8_t* in;
+  int f;
+  uint8_t* out;
+};
+
 // Rank i = g*E + e of a sorted group -> output slot i (ranks past the
-// group's entries, when r > E*L, are empty): the id and distance are read
-// back from the row by position, 16-byte stores where aligned.
-template <int L, int E>
+// group's entries, when r > E*L, are empty): the id and distance (and under
+// FLAGS the flag) are read back from the row by position, 16-byte (flags:
+// 4-byte) stores where aligned.
+template <int L, int E, bool FLAGS>
 __device__ __forceinline__ void write_ranks(const u64 (&key)[E], int g, const int* ids_r,
                                             const float* d_r, int r, bool vec_out, int* oi_r,
-                                            float* od_r) {
+                                            float* od_r, RowFlags fl) {
   int oi[E];
   float od[E];
+  uint8_t of[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const bool live = key[e] != EMPTY;
     const int pos = (int)(key[e] & 0xffffffffu);
     oi[e] = live ? __ldg(ids_r + pos) : -1;
     od[e] = live ? __ldg(d_r + pos) : CUDART_INF_F;
+    if constexpr (FLAGS) of[e] = !live ? 1 : pos < fl.f ? __ldg(fl.in + pos) : 0;
   }
   const int p0 = g * E;
   if (E % 4 == 0 && vec_out && p0 + E <= r) {
@@ -151,6 +166,9 @@ __device__ __forceinline__ void write_ranks(const u64 (&key)[E], int g, const in
       *reinterpret_cast<int4*>(oi_r + p0 + h) = make_int4(oi[h], oi[h + 1], oi[h + 2], oi[h + 3]);
       *reinterpret_cast<float4*>(od_r + p0 + h) =
           make_float4(od[h], od[h + 1], od[h + 2], od[h + 3]);
+      if constexpr (FLAGS)
+        *reinterpret_cast<uchar4*>(fl.out + p0 + h) =
+            make_uchar4(of[h], of[h + 1], of[h + 2], of[h + 3]);
     }
   } else {
 #pragma unroll
@@ -158,26 +176,28 @@ __device__ __forceinline__ void write_ranks(const u64 (&key)[E], int g, const in
       if (p0 + e < r) {
         oi_r[p0 + e] = oi[e];
         od_r[p0 + e] = od[e];
+        if constexpr (FLAGS) fl.out[p0 + e] = of[e];
       }
     }
   }
   for (int o = E * L + g; o < r; o += L) {
     oi_r[o] = -1;
     od_r[o] = CUDART_INF_F;
+    if constexpr (FLAGS) fl.out[o] = 1;
   }
 }
 
 // The live keys of a group, packed in position order into `xbuf` (whose
 // rows' tables are no longer read), sorted E keys a thread, written out.
-template <int L, int E>
+template <int L, int E, bool FLAGS>
 __device__ __forceinline__ void sort_packed(const u64* xbuf, int g, bool active, const int* ids_r,
                                             const float* d_r, int r, bool vec_out, int* oi_r,
-                                            float* od_r) {
+                                            float* od_r, RowFlags fl) {
   u64 key[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) key[e] = xbuf[g * E + e];
   bitonic_sort<L, E>(key, g, nullptr);
-  if (active) write_ranks<L, E>(key, g, ids_r, d_r, r, vec_out, oi_r, od_r);
+  if (active) write_ranks<L, E, FLAGS>(key, g, ids_r, d_r, r, vec_out, oi_r, od_r, fl);
 }
 
 // Rows a block takes: 256 threads in groups of L, or one row of L threads.
@@ -186,11 +206,12 @@ __host__ __device__ constexpr int rows_per_block() {
   return L >= 256 ? 1 : 256 / L;
 }
 
-template <int L>
+template <int L, bool FLAGS>
 __global__ void __launch_bounds__(L > 256 ? L : 256)
     topr_merge_kernel(const int* __restrict__ ids, const float* __restrict__ dists, long long b,
                       int w, int r, bool vec_in, bool vec_out, int* __restrict__ out_ids,
-                      float* __restrict__ out_dists) {
+                      float* __restrict__ out_dists, const uint8_t* __restrict__ flags, int f,
+                      uint8_t* __restrict__ out_flags) {
   constexpr int E = E_IN, N = E * L, T = 2 * N, RPB = rows_per_block<L>();
   extern __shared__ __align__(16) u64 tab_all[];
   const int grp = threadIdx.x / L, g = threadIdx.x % L;
@@ -201,6 +222,8 @@ __global__ void __launch_bounds__(L > 256 ? L : 256)
   const float* d_r = dists + (active ? row : 0) * w;
   int* oi_r = out_ids + (active ? row : 0) * r;
   float* od_r = out_dists + (active ? row : 0) * r;
+  RowFlags fl{};
+  if constexpr (FLAGS) fl = {flags + (active ? row : 0) * f, f, out_flags + (active ? row : 0) * r};
 
 #pragma unroll
   for (int t = 0; t < 2 * E; ++t) tab[t * L + g] = EMPTY;
@@ -274,11 +297,11 @@ __global__ void __launch_bounds__(L > 256 ? L : 256)
       for (int t = total + g; t < fill; t += L) tab[t] = EMPTY;
       __syncwarp();
       if (need <= L)
-        sort_packed<L, 1>(tab, g, active, ids_r, d_r, r, vec_out, oi_r, od_r);
+        sort_packed<L, 1, FLAGS>(tab, g, active, ids_r, d_r, r, vec_out, oi_r, od_r, fl);
       else if (need <= 2 * L)
-        sort_packed<L, 2>(tab, g, active, ids_r, d_r, r, vec_out, oi_r, od_r);
+        sort_packed<L, 2, FLAGS>(tab, g, active, ids_r, d_r, r, vec_out, oi_r, od_r, fl);
       else
-        sort_packed<L, 4>(tab, g, active, ids_r, d_r, r, vec_out, oi_r, od_r);
+        sort_packed<L, 4, FLAGS>(tab, g, active, ids_r, d_r, r, vec_out, oi_r, od_r, fl);
       return;
     }
   }
@@ -286,36 +309,39 @@ __global__ void __launch_bounds__(L > 256 ? L : 256)
   // 5. all N keys (the shared-memory stages of a row across warps reuse
   // the table), rank i -> output slot i
   bitonic_sort<L, E>(key, g, tab);
-  if (active) write_ranks<L, E>(key, g, ids_r, d_r, r, vec_out, oi_r, od_r);
+  if (active) write_ranks<L, E, FLAGS>(key, g, ids_r, d_r, r, vec_out, oi_r, od_r, fl);
 }
 
-template <int L>
+template <int L, bool FLAGS>
 cudaError_t launch(const int* ids, const float* dists, long long b, int w, int r, bool vec_in,
-                   bool vec_out, int* out_ids, float* out_dists, cudaStream_t stream) {
+                   bool vec_out, int* out_ids, float* out_dists, const uint8_t* flags, int f,
+                   uint8_t* out_flags, cudaStream_t stream) {
   constexpr int RPB = rows_per_block<L>();
   constexpr int threads = L > 256 ? L : 256;
   const size_t smem = (size_t)RPB * 2 * E_IN * L * sizeof(u64);
-  cudaError_t err = allow_smem(topr_merge_kernel<L>, smem);
+  cudaError_t err = allow_smem(topr_merge_kernel<L, FLAGS>, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (b + RPB - 1) / RPB;
-  topr_merge_kernel<L><<<(unsigned)blocks, threads, smem, stream>>>(ids, dists, b, w, r, vec_in,
-                                                                     vec_out, out_ids, out_dists);
+  topr_merge_kernel<L, FLAGS><<<(unsigned)blocks, threads, smem, stream>>>(
+      ids, dists, b, w, r, vec_in, vec_out, out_ids, out_dists, flags, f, out_flags);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int topr_merge_launch(const int* ids, const float* dists, long long b, int w, int r,
-                                 int* out_ids, float* out_dists, cudaStream_t stream) {
+template <bool FLAGS>
+int dispatch(const int* ids, const float* dists, long long b, int w, int r, int* out_ids,
+             float* out_dists, const uint8_t* flags, int f, uint8_t* out_flags,
+             cudaStream_t stream) {
   if (b == 0) return cudaSuccess;
   const bool vec_in = w % 4 == 0 && aligned_to(ids, 16) && aligned_to(dists, 16);
-  const bool vec_out = r % 4 == 0 && aligned_to(out_ids, 16) && aligned_to(out_dists, 16);
+  const bool vec_out = r % 4 == 0 && aligned_to(out_ids, 16) && aligned_to(out_dists, 16) &&
+                       (!FLAGS || aligned_to(out_flags, 4));
   int l = 1;  // the group width: N = 8L entries, the power of two at or above W
   while (E_IN * l < w) l <<= 1;
   switch (l) {
-#define REPRO_TOPR_CASE(L_) \
-  case L_:                  \
-    return launch<L_>(ids, dists, b, w, r, vec_in, vec_out, out_ids, out_dists, stream);
+#define REPRO_TOPR_CASE(L_)                                                                   \
+  case L_:                                                                                    \
+    return launch<L_, FLAGS>(ids, dists, b, w, r, vec_in, vec_out, out_ids, out_dists, flags, \
+                             f, out_flags, stream);
     REPRO_TOPR_CASE(1)
     REPRO_TOPR_CASE(2)
     REPRO_TOPR_CASE(4)
@@ -331,4 +357,19 @@ extern "C" int topr_merge_launch(const int* ids, const float* dists, long long b
     default:
       return cudaErrorInvalidValue;  // W > 8192
   }
+}
+
+}  // namespace
+
+extern "C" int topr_merge_launch(const int* ids, const float* dists, long long b, int w, int r,
+                                 int* out_ids, float* out_dists, cudaStream_t stream) {
+  return dispatch<false>(ids, dists, b, w, r, out_ids, out_dists, nullptr, 0, nullptr, stream);
+}
+
+// The beam merge: also (B, F) input flags (F <= W, one byte each) of the
+// first F entries, carried to the (B, r) output flags by surviving position.
+extern "C" int topr_merge_flags_launch(const int* ids, const float* dists, long long b, int w,
+                                       int r, const uint8_t* flags, int f, int* out_ids,
+                                       float* out_dists, uint8_t* out_flags, cudaStream_t stream) {
+  return dispatch<true>(ids, dists, b, w, r, out_ids, out_dists, flags, f, out_flags, stream);
 }

@@ -110,11 +110,13 @@ def rowwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return _rowwise(x, y)
 
 
-def topr_merge(ids: torch.Tensor, dists: torch.Tensor, r: int):
-    """(B, W) candidate rows -> (B, r) closest unique entries."""
+def topr_merge(ids: torch.Tensor, dists: torch.Tensor, r: int, flags=None):
+    """(B, W) candidate rows -> (B, r) closest unique entries; with (B, F)
+    bool `flags` of the first F entries, also the (B, r) flags they carry to
+    the output (True in empty slots)."""
     if _BACKEND == "ref":
-        return ref.topr_merge_ref(ids, dists, r)
-    return _topr_merge(ids, dists, r)
+        return ref.topr_merge_ref(ids, dists, r, flags)
+    return _topr_merge(ids, dists, r, flags)
 
 
 def search_expand(x, queries, nbrs, table, valid=None, vwords=None, fwords=None):

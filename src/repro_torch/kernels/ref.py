@@ -213,12 +213,16 @@ def search_expand_ref(
     return (*out, ok & ((lw & fwords[:, None, :]) != 0).any(-1))
 
 
-def topr_merge_ref(ids: torch.Tensor, dists: torch.Tensor, r: int):
+def topr_merge_ref(ids: torch.Tensor, dists: torch.Tensor, r: int, flags=None):
     """Per row of (B, W) candidates: the r closest unique valid entries.
 
     An id of -1 counts as +inf; a slot whose id also sits at an earlier
     position is dropped; the survivors are taken in (dist, position) order
     (a stable sort); empty output slots are (-1, +inf).
+
+    With `flags`, (B, F) bool flags of the first F <= W entries, the (B, r)
+    output flags come third: a live slot takes the flag at the position it
+    came from (False past F), an empty slot True.
     """
     ids = ids.int()
     dists = torch.where(ids < 0, torch.inf, dists.float())
@@ -227,6 +231,10 @@ def topr_merge_ref(ids: torch.Tensor, dists: torch.Tensor, r: int):
         ids = torch.nn.functional.pad(ids, (0, r - w), value=-1)
         dists = torch.nn.functional.pad(dists, (0, r - w), value=torch.inf)
         w = r
+    if flags is not None:
+        fl = torch.zeros((b, w), dtype=torch.bool, device=ids.device)
+        fl[:, : flags.shape[1]] = flags
+        out_f = torch.empty((b, r), dtype=torch.bool, device=ids.device)
     earlier = torch.tril(torch.ones((w, w), dtype=torch.bool, device=ids.device), -1)
     out_i = torch.empty((b, r), dtype=torch.int32, device=ids.device)
     out_d = torch.empty((b, r), dtype=torch.float32, device=ids.device)
@@ -239,4 +247,8 @@ def topr_merge_ref(ids: torch.Tensor, dists: torch.Tensor, r: int):
         od = bd.gather(1, order)
         out_d[lo:hi] = od
         out_i[lo:hi] = torch.where(torch.isinf(od), -1, bi.gather(1, order))
-    return out_i, out_d
+        if flags is not None:
+            out_f[lo:hi] = torch.isinf(od) | fl[lo:hi].gather(1, order)
+    if flags is None:
+        return out_i, out_d
+    return out_i, out_d, out_f

@@ -21,8 +21,8 @@ The names are the closed tuple `SPANS` (nested spans indented):
     grnnd.reverse     one reverse-edge round (`pools.stage`, `pools.merge` inside)
     search.step       one iteration of the beam loop, the last (breaking) one included
       search.frontier   the frontier mask and its host sync
-      search.beam       the selection before the expand; the merge, the
-                        expanded-flag match and the result heap after it
+      search.beam       the selection before the expand; the merge (which
+                        carries the expanded flags) and the result heap after it
       search.expand     the neighbour gather and B3
       search.visited    the visited-set update
 

@@ -15,7 +15,11 @@ block sizes, and the label filter of search_expand at W = 1, 3, 4 and 5
 words (int4 loads only at W = 4) and R = 13 (not a multiple of a lane
 group), with labels on the int32 sign bit; the adversarial merge rows of
 `merge_cases` at W = 1 ... 8192 with r below and above W (every group width
-of 1 to 1024 threads a row, packed and unpacked); and rng_round at each
+of 1 to 1024 threads a row, packed and unpacked); the merge that carries
+the beam's expanded flags on beam rows (`tests/_beam_rows.py`) at the beam
+merges' widths, sparse and dense, against the plain flagged merge and the id
+match it replaces, and on random rows at every group width, launched once a
+search step and never by a build; and rng_round at each
 storage rung with rows copied by bulk copies (D = 128), plainly (D = 33) and
 into a row buffer that leaves one to four blocks an SM (D = 960); gather_sqdist
 on the re-base's runs of equal owners at 1 to 8 quads a lane and past them
@@ -86,6 +90,7 @@ from repro_torch.kernels.rng_round import rng_round
 from repro_torch.kernels.search_expand import search_expand
 from repro_torch.kernels.topr_merge import topr_merge
 from repro_torch.kernels.visited_insert import visited_insert
+from _beam_rows import beam_rows, match_flags
 
 pytestmark = pytest.mark.cuda
 
@@ -222,6 +227,44 @@ def test_topr_merge_kernel_adversarial_rows(dev, w, wider):
     gi, gd = _launched("topr_merge", lambda: topr_merge(ids, dists, r))
     wi, wd = ref.topr_merge_ref(ids, dists, r)
     assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+# the beam merges' (W, r) = (ef + R, ef) at ef 64, 128, 400 and 512 (R = 48),
+# their flags on the ef candidates; and a few of the shapes above with F < W
+BEAM_FLAG_SHAPES = [(64, 48), (128, 48), (400, 48), (512, 48)]
+FLAG_SHAPES = [(1000, 96, 48, 30), (64, 7, 12, 3), (5, 33, 1, 33), (300, 560, 512, 200),
+               (500, 2000, 1000, 1500), (20, 8192, 8192, 8192)]
+
+
+@pytest.mark.parametrize("ef,r", BEAM_FLAG_SHAPES)
+@pytest.mark.parametrize("fill", [0.05, 0.2, 0.45, 1.0])
+def test_topr_merge_flags_kernel_is_exact(dev, ef, r, fill):
+    """Beam rows sparse enough for each packed sort (1, 2, 4 keys a thread
+    at W = 112 and 176) and dense enough for the full one: ids, dists and
+    flags bitwise the plain flagged merge, the flags the id match the
+    search once made, ids and dists those of the merge without flags."""
+    ids, dists, expanded = (t.to(dev) for t in beam_rows(2000, ef, r, fill, seed=ef))
+    gi, gd, gf = _launched("topr_merge/flags", lambda: topr_merge(ids, dists, ef, expanded))
+    wi, wd, wf = ref.topr_merge_ref(ids, dists, ef, expanded)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd) and torch.equal(gf, wf)
+    assert torch.equal(gf, match_flags(ids[:, :ef], expanded, gi))
+    pi, pd = _launched("topr_merge", lambda: topr_merge(ids, dists, ef))
+    assert torch.equal(gi, pi) and torch.equal(gd, pd)
+
+
+@pytest.mark.parametrize("b,w,r,f", FLAG_SHAPES)
+def test_topr_merge_flags_kernel_on_any_rows(dev, b, w, r, f):
+    """Random rows with repeats in the flagged part too: bitwise the plain
+    flagged merge at every group width, r below and above W."""
+    g = torch.Generator(dev).manual_seed(b + w + f)
+    ids = torch.randint(-1, max(2, w // 2), (b, w), generator=g, device=dev, dtype=torch.int32)
+    dists = torch.rand((b, w), generator=g, device=dev)
+    dists[:, ::3] = (dists[:, ::3] * 10).round() / 10  # exact ties
+    dists[torch.rand((b, w), generator=g, device=dev) < 0.1] = torch.inf
+    flags = torch.rand((b, f), generator=g, device=dev) < 0.5
+    got = _launched("topr_merge/flags", lambda: topr_merge(ids, dists, r, flags))
+    want = ref.topr_merge_ref(ids, dists, r, flags)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("precision", RUNGS)
@@ -989,3 +1032,30 @@ def test_build_and_hashed_search_sync_only_at_counted_sites(dev):
     assert passes["search.entry"] == 1 and passes["grnnd.reverse"] == 0
     assert len(warned) == sum(passes.values()), (passes, where)
     assert int(res.n_expanded.min()) > 0
+
+
+def test_beam_merge_carries_the_flags_once_a_step(dev):
+    """A hashed unfiltered search without a rescore launches the flagged
+    merge once a step (as often as B3) and the plain merge never; a build
+    launches only the plain merge: the init, each round and each
+    reverse-edge round."""
+    g = torch.Generator(dev).manual_seed(4)
+    x = synthetic.make_preset(g, "sift-like", 4000)
+    queries = synthetic.queries_from(g, x, 200)
+    cfg = GRNNDConfig(s=12, r=24, t1=3, t2=3, pairs_per_vertex=24)
+
+    def launched(fn):
+        before = trace.counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = trace.counts()
+        return out, {k: v - before.get(k, 0) for k, v in after.items() if k.startswith("launch/")}
+
+    pool, built = launched(lambda: build_graph(x, cfg, draws=Draws(1, dev), device=dev))
+    assert built.get("launch/topr_merge/flags", 0) == 0
+    assert built["launch/topr_merge"] == 1 + cfg.t1 * cfg.t2 + cfg.t1 - 1
+    _, searched = launched(
+        lambda: search(x, pool.ids, queries, k=10, ef=48, visited="hashed", device=dev)
+    )
+    assert searched["launch/topr_merge/flags"] == searched["launch/search_expand"] > 1
+    assert searched.get("launch/topr_merge", 0) == 0

@@ -54,7 +54,9 @@ def graph():
     return x, pool, q, tx, tpool, torch.from_numpy(np.array(q))
 
 
-@pytest.mark.parametrize("visited,cap", [("dense", None), ("hashed", None), ("hashed", 64)])
+@pytest.mark.parametrize(
+    "visited,cap", [("dense", None), ("hashed", None), ("hashed", 64), ("hashed", 32)]
+)
 @pytest.mark.parametrize("ef", [16, 48])
 def test_search_matches_reference_on_the_same_graph(graph, visited, cap, ef):
     x, pool, q, tx, tpool, tq = graph
@@ -76,6 +78,18 @@ def test_search_matches_reference_on_the_same_graph(graph, visited, cap, ef):
     same = (wi == gi).all(1) & (np.asarray(want.n_expanded) == got.n_expanded.numpy())
     assert same.mean() >= 0.98, same.mean()
     np.testing.assert_allclose(got.dists.numpy()[same], np.asarray(want.dists)[same], rtol=1e-5)
+
+
+def test_small_visited_table_re_enters_ids(graph):
+    """A 32-slot table at ef 48 misses inserts, so ids come back as fresh
+    and re-enter the beam: more expansions than the exact dense set, and
+    the beam's expanded flags (carried through the merge) still match the
+    reference's search."""
+    _, _, _, tx, tpool, tq = graph
+    small = search(tx, tpool.ids, tq, ef=48, visited="hashed", visited_cap=32, device="cpu")
+    dense = search(tx, tpool.ids, tq, ef=48, visited="dense", device="cpu")
+    assert int(small.n_expanded.sum()) > int(dense.n_expanded.sum())
+    assert bool((small.n_expanded >= dense.n_expanded).all())
 
 
 def test_medoid_matches_reference(graph):
