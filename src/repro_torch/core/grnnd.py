@@ -175,12 +175,17 @@ def update_round(x, pool: P.Pool, draws, cfg: GRNNDConfig, t1: int = 0, t2: int 
             with trace.span("grnnd.propagate"):
                 dst, src, dij, killed = _round_pair_matrices(x, pool, draws, cfg, t1, t2)
             staged_i, staged_d = P.stage_request_matrix(dst, src, dij, n, cfg.cap)
+            del dst, src, dij
         else:
             with trace.span("grnnd.propagate"):
                 redirect, killed = _sorted_requests_chunk(x, pool.ids, pool.dists, cfg)
             staged_i, staged_d = P.group_requests(redirect, n, cfg.cap)
+            del redirect
+        # the requests are dead once staged, the kill mask once applied:
+        # neither is held through the merge
         surv_ids = torch.where(killed, -1, pool.ids)
         surv_dists = torch.where(killed, torch.inf, pool.dists)
+        del killed
         return P.merge_into(P.Pool(surv_ids, surv_dists), staged_i, staged_d)
 
 

@@ -10,7 +10,8 @@ as in the JAX package's `core/pools.py`:
 
   1. `_stage`: a round's (dst, src, dist) insertion requests are ordered by
      stable sorts (dst-major, dist-minor), capped per destination, and
-     scattered into a per-vertex (N, cap) staging buffer;
+     scattered into a per-vertex (N, cap) staging buffer (past
+     `STAGE_BUDGET` requests, over slices of destinations, bitwise the same);
   2. `ops.topr_merge`: per vertex, pool and staging are deduplicated and
      the R closest survive.
 """
@@ -29,6 +30,13 @@ from repro_torch.kernels import ops
 # vertices per block of `_owner_dists`: bounds its two gathered
 # (block * K, D) fp32 matrices (800 MB each at K = 24, D = 128)
 OWNER_BLOCK = 1 << 16
+
+# requests staged in one pass at most (`_stage`). A pass holds up to ~60 bytes
+# a request at once (the sorts' int64 permutations and double buffers, the
+# gathered copies), ~8 GB at this budget; every staging of a 10^6-row build
+# (N·P = N·R = 4.8·10^7 at R = P = 48) stays one pass. Past it the requests
+# are staged over ranges of destinations, at most this many a slice
+STAGE_BUDGET = 1 << 27
 
 
 class Pool(NamedTuple):
@@ -120,7 +128,8 @@ def stage_request_matrix(dst, src, dist, n: int, cap: int):
         return _stage(dst.reshape(-1), src.reshape(-1), dist.reshape(-1), n, cap)
 
 
-def _stage(dst, src_in, dist_in, n: int, cap: int, drop_self: bool = True):
+def _stage(dst, src_in, dist_in, n: int, cap: int, drop_self: bool = True,
+           budget: int | None = None):
     """Stage requests into per-destination buffers: -> ids / dists (N, cap).
 
     Requests are ordered dist-minor / dst-major with two stable sorts,
@@ -128,7 +137,83 @@ def _stage(dst, src_in, dist_in, n: int, cap: int, drop_self: bool = True):
     destination scattered. Self-inserts (dst == src) and inactive requests
     (dst < 0) are dropped, and so is every repeat of a (dst, src) pair, so
     that repeats cannot crowd out distinct candidates at the cap.
+
+    All of this happens within one destination's requests. So a batch of
+    more than `budget` requests (default `STAGE_BUDGET`; the argument is for
+    tests) is staged over ranges of destinations, one slice at a time: a
+    slice is the requests to its range (an inactive request is in none), in
+    their original order, so the stable sorts order every destination's
+    requests as one pass does, and the staged ids and distances are bitwise
+    the same at any slice count. Up to `budget` the one pass is the one
+    slice [0, N) of every request.
     """
+    budget = STAGE_BUDGET if budget is None else budget
+    if dst.shape[0] <= budget:
+        parts = [_rank(dst, src_in, dist_in, 0, n, n, cap, drop_self)]
+    else:
+        parts = _slices(dst, src_in, dist_in, n, cap, drop_self, budget)
+    dev = dst.device
+    staged_ids = torch.full((n * cap + 1,), -1, dtype=torch.int32, device=dev)
+    staged_dists = torch.full((n * cap + 1,), torch.inf, dtype=torch.float32, device=dev)
+    for flat, src_s, dist_s in parts:
+        staged_ids.scatter_(0, flat, src_s.int())
+        staged_dists.scatter_(0, flat, dist_s.float())
+        del flat, src_s, dist_s
+    return staged_ids[:-1].view(n, cap), staged_dists[:-1].view(n, cap)
+
+
+def _slices(dst, src_in, dist_in, n: int, cap: int, drop_self: bool, budget: int):
+    """`_rank` over the ranges of `_slice_bounds`, each range's requests
+    taken out, in request order, only for its turn."""
+    bounds, ranges = _slice_bounds(dst, n, budget)
+    # the range of each request: k for destinations in ranges[k - 1], 0 if inactive
+    sid = torch.searchsorted(bounds.to(dst.dtype), dst, right=True, out_int32=True)
+    for k, (lo, hi, size) in enumerate(ranges, start=1):
+        if size == 0:
+            continue
+        with trace.span("pools.slice"):
+            trace.tally("pools/slices")
+            sel = torch.nonzero_static(sid == k, size=size).squeeze(1)
+            part = _rank(dst[sel], src_in[sel], dist_in[sel], lo, hi, n, cap, drop_self)
+            del sel
+        yield part
+
+
+def _slice_bounds(dst, n: int, budget: int):
+    """Ranges of destinations [lo, hi) that split requests to destinations
+    `dst` (-1: inactive, in no range) into slices of at most `budget`,
+    greedily from destination 0 (a destination with more requests than that
+    takes a range alone): (their bounds (K + 1,) on the card, [(lo, hi,
+    requests)])."""
+    dev = dst.device
+    m = dst.shape[0]
+    act = dst >= 0
+    # an inactive request adds 0 to a bin of its own position: on one bin
+    # their atomics all collide (356 ms for 4.2·10^8 of them on an H100)
+    spread = torch.arange(m, dtype=dst.dtype, device=dev).remainder_(n)
+    per_dst = torch.zeros(n, dtype=torch.int32, device=dev)
+    per_dst.index_add_(0, torch.where(act, dst, spread), act.int())
+    del act, spread
+    ends = F.pad(per_dst.cumsum(0, dtype=torch.int64), (1, 0))  # requests below each
+    lo = torch.zeros(1, dtype=torch.int64, device=dev)
+    bounds = [lo]
+    # consecutive greedy ranges hold more than `budget` together, so this
+    # many steps reach n; past n every step stays there
+    for _ in range(2 * (m // budget) + 2):
+        hi = torch.searchsorted(ends, ends[lo] + budget, right=True) - 1
+        lo = torch.maximum(hi, lo + 1).clamp_max(n)
+        bounds.append(lo)
+    bounds = torch.cat(bounds)
+    trace.count("pools.stage")  # the host reads the ranges
+    at, below = torch.stack([bounds, ends[bounds]]).tolist()
+    k = at.index(n) + 1
+    return bounds[:k], [(at[i], at[i + 1], below[i + 1] - below[i]) for i in range(k - 1)]
+
+
+def _rank(dst, src_in, dist_in, lo: int, hi: int, n: int, cap: int, drop_self: bool):
+    """The staging of requests to destinations in [lo, hi) (every other dst
+    < 0): -> (slot of each in the (n·cap + 1,) staging buffer, n·cap for
+    those dropped; src; dist), in the stage order."""
     dev = dst.device
     if drop_self:
         dst = torch.where(dst == src_in, -1, dst)
@@ -136,40 +221,44 @@ def _stage(dst, src_in, dist_in, n: int, cap: int, drop_self: bool = True):
     # dedup identical (dst, src) requests: sort src-minor / dst-major and
     # invalidate repeats
     o1 = torch.argsort(src_in, stable=True)
-    o2 = torch.argsort(torch.where(dst >= 0, dst, n)[o1], stable=True)
+    o2 = torch.argsort(torch.where(dst >= 0, dst, hi)[o1], stable=True)
     dperm = o1[o2]
+    del o1, o2
     dst_p, src_p = dst[dperm], src_in[dperm]
     dup = torch.zeros_like(dst_p, dtype=torch.bool)
     dup[1:] = (dst_p[1:] == dst_p[:-1]) & (src_p[1:] == src_p[:-1]) & (dst_p[1:] >= 0)
+    del src_p
     dst = torch.empty_like(dst)
     dst[dperm] = torch.where(dup, -1, dst_p)  # dperm is a permutation
+    del dperm, dst_p, dup
 
     dist = torch.where(dst >= 0, dist_in, torch.inf)
-    dst_key = torch.where(dst >= 0, dst, n)  # inactive sorts to the end
+    dst_key = torch.where(dst >= 0, dst, hi)  # inactive sorts to the end
+    del dst
 
     # stable composed sort: dist-minor, then dst-major
     order1 = torch.argsort(dist, stable=True)
     order2 = torch.argsort(dst_key[order1], stable=True)
     perm = order1[order2]
+    del order1, order2
     dst_s, src_s, dist_s = dst_key[perm], src_in[perm], dist[perm]
+    del perm, dst_key, dist
 
     # rank within each destination segment. dst_s is sorted, so segment v
     # starts at the first position holding v: one binary search per key
     # value gives the starts the reference's max-scan gives (on the card,
     # torch.cummax over the N·P entries took three quarters of a round and
     # a histogram of them, whose atomics collide on sorted keys, 40%)
-    keys = torch.arange(n + 1, dtype=dst_s.dtype, device=dev)
-    seg_start = torch.searchsorted(dst_s, keys)[dst_s.long()]
+    keys = torch.arange(lo, hi + 1, dtype=dst_s.dtype, device=dev)
+    row = dst_s.long()
+    seg_start = torch.searchsorted(dst_s, keys)[row - lo if lo else row]
     rank = torch.arange(dst_s.shape[0], device=dev) - seg_start
+    del keys, seg_start
 
-    # scatter the kept requests; the rest go to one extra slot, dropped after
-    keep = (rank < cap) & (dst_s < n)
-    flat = torch.where(keep, dst_s.long() * cap + rank, n * cap)
-    staged_ids = torch.full((n * cap + 1,), -1, dtype=torch.int32, device=dev)
-    staged_dists = torch.full((n * cap + 1,), torch.inf, dtype=torch.float32, device=dev)
-    staged_ids.scatter_(0, flat, src_s.int())
-    staged_dists.scatter_(0, flat, dist_s.float())
-    return staged_ids[:-1].view(n, cap), staged_dists[:-1].view(n, cap)
+    # the kept requests' slots; the rest go to one extra slot, dropped after
+    keep = (rank < cap) & (dst_s < hi)
+    flat = torch.where(keep, row * cap + rank, n * cap)
+    return flat, src_s, dist_s
 
 
 def merge_into(pool: Pool, cand_ids: torch.Tensor, cand_dists: torch.Tensor) -> Pool:
@@ -184,6 +273,7 @@ def insert_requests(pool: Pool, req: Requests, cap: int | None = None) -> Pool:
     """Group a request batch and merge it into the pool (both stages)."""
     cap = cap if cap is not None else pool.r
     staged_ids, staged_dists = group_requests(req, pool.n, cap)
+    del req  # dead once staged: not held through the merge
     return merge_into(pool, staged_ids, staged_dists)
 
 

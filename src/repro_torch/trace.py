@@ -1,4 +1,4 @@
-"""Named spans and host-sync counters inside the build rounds and the beam loop.
+"""Named spans and counters inside the build rounds and the beam loop.
 
 `span(name)` marks a region of the program. While a `torch.profiler`
 session records, it is a record function, so the span lands on the
@@ -17,8 +17,12 @@ The names are the closed tuple `SPANS` (nested spans indented):
     grnnd.round       one (t1, t2) round of `grnnd.update_round`
       grnnd.propagate   the slot-pair draws and B1, or the sorted round
       pools.stage       staging the round's requests (`pools._stage`)
+        pools.slice       one slice of destinations (`pools._stage`), only
+                          in a staging of more than `pools.STAGE_BUDGET`
+                          requests
       pools.merge       the round's merge (`pools.merge_into`, B2)
-    grnnd.reverse     one reverse-edge round (`pools.stage`, `pools.merge` inside)
+    grnnd.reverse     one reverse-edge round (`pools.stage` ⊃ `pools.slice`,
+                      `pools.merge` inside)
     search.step       one iteration of the beam loop, the last (breaking) one included
       search.frontier   the frontier mask and its host sync
       search.beam       the selection before the expand; the merge (which
@@ -34,9 +38,17 @@ named in `SYNCS`:
                       step that expands
     search.entry      the entry row's gather by a 0-dim index, once a search
     grnnd.reverse     ρ made a device tensor, once a reverse-edge round
+    pools.stage       the slices' ranges read, once a staging of more
+                      than `pools.STAGE_BUDGET` requests
+
+`tally(name)` counts one event of the program, named in `TALLIES`:
+
+    pools/slices      one slice staged (`pools._stage`), only in a staging
+                      of more than `pools.STAGE_BUDGET` requests
 
 `counts()` is one snapshot of the kernel launches (`kernels/_build.LAUNCHES`,
-as `launch/<variant>`) and of the sync counts (as `host_sync/<site>`).
+as `launch/<variant>`), of the sync counts (as `host_sync/<site>`) and of
+the tallies (under their own names).
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ SPANS = (
     "grnnd.propagate",
     "grnnd.reverse",
     "pools.stage",
+    "pools.slice",
     "pools.merge",
     "search.step",
     "search.frontier",
@@ -60,7 +73,8 @@ SPANS = (
     "search.expand",
     "search.visited",
 )
-SYNCS = ("search.frontier", "search.expanded", "search.entry", "grnnd.reverse")
+SYNCS = ("search.frontier", "search.expanded", "search.entry", "grnnd.reverse", "pools.stage")
+TALLIES = ("pools/slices",)
 
 _NAMES = frozenset(SPANS)
 _OFF = contextlib.nullcontext()
@@ -68,6 +82,8 @@ _OFF = contextlib.nullcontext()
 # site -> passes of its host sync since the process started (module-wide,
 # like `_build.LAUNCHES`)
 HOST_SYNCS: dict[str, int] = dict.fromkeys(SYNCS, 0)
+# name -> events since the process started
+EVENTS: dict[str, int] = dict.fromkeys(TALLIES, 0)
 
 
 def span(name: str):
@@ -86,8 +102,14 @@ def count(site: str) -> None:
     HOST_SYNCS[site] += 1
 
 
+def tally(name: str) -> None:
+    """Count one event `name` (one of `TALLIES`)."""
+    EVENTS[name] += 1
+
+
 def counts() -> dict[str, int]:
-    """The kernel launches and host syncs so far, in one snapshot."""
+    """The kernel launches, host syncs and tallies so far, in one snapshot."""
     out = {f"launch/{k}": v for k, v in _build.LAUNCHES.items()}
     out.update({f"host_sync/{k}": v for k, v in HOST_SYNCS.items()})
+    out.update(EVENTS)
     return out

@@ -47,7 +47,8 @@ leaf's largest magnitude), and resumed training bitwise uninterrupted
 training under `torch.use_deterministic_algorithms`; and a build and a
 hashed search that wait for the card (`torch.cuda.set_sync_debug_mode`)
 exactly as often as they pass their counted sync sites
-(`repro_torch.trace.SYNCS`).
+(`repro_torch.trace.SYNCS`), with the staging in one pass and in slices;
+and at 2·10^6 rows a build staged in slices bitwise the one-pass build.
 Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
 summation order; the dequant itself is bitwise the plain version's);
 pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition cancellation);
@@ -80,6 +81,7 @@ from repro_torch.core import (
 )
 from repro_torch import trace
 from repro_torch.core import corpus_shard as CS
+from repro_torch.core import pools
 from repro_torch.core.labels import pack_ids
 from repro_torch.core.search import _table_insert
 from repro_torch.data import synthetic
@@ -1010,19 +1012,28 @@ def _counted_syncs(fn):
                          if k.startswith("host_sync/")}
 
 
-def test_build_and_hashed_search_sync_only_at_counted_sites(dev):
+@pytest.mark.parametrize("budget", [None, 20_000])
+def test_build_and_hashed_search_sync_only_at_counted_sites(dev, monkeypatch, budget):
     """A build and a hashed search wait for the card exactly as often as
     their counted sync sites (`trace.SYNCS`) are passed: once a
-    reverse-edge round; once a loop iteration, once an expanding step and
-    once a call."""
+    reverse-edge round, and once a staging where the staging is sliced (a
+    forced budget of 20,000 of its 96,000 requests); once a loop
+    iteration, once an expanding step and once a call."""
     g = torch.Generator(dev).manual_seed(3)
     x = synthetic.make_preset(g, "sift-like", 4000)
     queries = synthetic.queries_from(g, x, 200)
     cfg = GRNNDConfig(s=12, r=24, t1=3, t2=3, pairs_per_vertex=24, chunk_size=1000)
     draws = Draws(1, dev)
+    if budget is not None:
+        monkeypatch.setattr(pools, "STAGE_BUDGET", budget)
     pool, warned, passes = _counted_syncs(lambda: build_graph(x, cfg, draws=draws, device=dev))
     where = sorted({(w.filename, w.lineno) for w in warned})
     assert passes["grnnd.reverse"] == cfg.t1 - 1
+    stagings = cfg.t1 * cfg.t2 + cfg.t1 - 1
+    if budget is None:
+        assert passes["pools.stage"] == 0
+    else:  # the ranges read
+        assert passes["pools.stage"] == stagings
     assert len(warned) == sum(passes.values()), where
     res, warned, passes = _counted_syncs(
         lambda: search(x, pool.ids, queries, k=10, ef=48, visited="hashed", device=dev)
@@ -1032,6 +1043,23 @@ def test_build_and_hashed_search_sync_only_at_counted_sites(dev):
     assert passes["search.entry"] == 1 and passes["grnnd.reverse"] == 0
     assert len(warned) == sum(passes.values()), (passes, where)
     assert int(res.n_expanded.min()) > 0
+
+
+def test_sliced_staging_on_the_card_is_bitwise_the_one_pass(dev, monkeypatch):
+    """At 2·10^6 rows (DEEP1M's build settings, the deep-like preset) a build
+    whose every staging of 9.6·10^7 requests runs in slices of at most 2^22
+    is bitwise the build that stages each in one pass."""
+    g = torch.Generator(dev).manual_seed(6)
+    x = synthetic.make_preset(g, "deep-like", 2_000_000)
+    cfg = GRNNDConfig(s=24, r=48, t1=3, t2=6, rho=0.6, pairs_per_vertex=48, chunk_size=4096)
+    want = build_graph(x, cfg, draws=Draws(2, dev), device=dev)
+    monkeypatch.setattr(pools, "STAGE_BUDGET", 1 << 22)
+    before = trace.counts()["pools/slices"]
+    got = build_graph(x, cfg, draws=Draws(2, dev), device=dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.dists, want.dists)
+    # a round's active requests (its redirects) and a reverse round's, past 2^22
+    assert trace.counts()["pools/slices"] - before > 2 * (cfg.t1 * cfg.t2 + cfg.t1 - 1)
 
 
 def test_beam_merge_carries_the_flags_once_a_step(dev):

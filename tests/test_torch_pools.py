@@ -3,10 +3,12 @@
 Staging is pure integer work on identical (dst, src, dist) inputs: the
 staged ids and dists must equal the reference's exactly, including
 duplicate requests, self requests, inactive requests and capacity
-overflow. Merges go through `topr_merge`, whose integers are exact too.
-`init_random` is fed the reference's own raw draws; its distances are
-fp32 sums in another order (rtol 1e-5), and its ids must be equal except
-where two of a row's distances tie within that tolerance.
+overflow; so must the staging in slices of destinations, past a forced
+`pools.STAGE_BUDGET`, in one slice that holds every active request or in
+several. Merges go through `topr_merge`, whose integers are exact too.
+`init_random` is fed the reference's own raw draws; its distances are fp32
+sums in another order (rtol 1e-5), and its ids must be equal except where
+two of a row's distances tie within that tolerance.
 """
 
 import jax
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from repro.core import pools as jpools
+from repro_torch import trace
 from repro_torch.core import pools
 from repro_torch.core.draws import RecordedDraws
 
@@ -54,10 +57,25 @@ def _requests(seed, n, m, dup_frac=0.3):
     return dst, src, dist
 
 
-@pytest.mark.parametrize(
-    "seed,n,p,cap", [(0, 40, 6, 4), (1, 64, 16, 16), (2, 30, 24, 3), (3, 128, 8, 32)]
-)
-def test_stage_request_matrix_equals_reference_exactly(seed, n, p, cap):
+STAGE_CASES = [(0, 40, 6, 4), (1, 64, 16, 16), (2, 30, 24, 3), (3, 128, 8, 32)]
+
+
+def _force_slices(monkeypatch, dst, slices):
+    """Set `pools.STAGE_BUDGET` under the batch's size, so that staging `dst`
+    runs in slices: "one" that holds every active request, or "several";
+    -> the `pools/slices` count before."""
+    active = int((dst >= 0).sum())
+    assert 10 < active < dst.size
+    monkeypatch.setattr(pools, "STAGE_BUDGET", active if slices == "one" else active // 4)
+    return trace.counts()["pools/slices"]
+
+
+def _slices_since(before, slices, stagings=1):
+    got = trace.counts()["pools/slices"] - before
+    assert got == stagings if slices == "one" else got > stagings
+
+
+def _stage_equals_reference(seed, n, p, cap):
     dst, src, dist = (a.reshape(n, p) for a in _requests(seed, n, n * p))
     gi, gd = pools.stage_request_matrix(_t(dst), _t(src), _t(dist), n, cap)
     wi, wd = _stage_ref(dst, src, dist, n, cap)
@@ -66,8 +84,21 @@ def test_stage_request_matrix_equals_reference_exactly(seed, n, p, cap):
     np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
 
 
-@pytest.mark.parametrize("drop_self", [True, False])
-def test_group_requests_equals_reference_exactly(drop_self):
+@pytest.mark.parametrize("seed,n,p,cap", STAGE_CASES)
+def test_stage_request_matrix_equals_reference_exactly(seed, n, p, cap):
+    _stage_equals_reference(seed, n, p, cap)
+
+
+@pytest.mark.parametrize("slices", ["one", "several"])
+@pytest.mark.parametrize("seed,n,p,cap", STAGE_CASES)
+def test_stage_request_matrix_in_slices_equals_reference_exactly(
+        seed, n, p, cap, slices, monkeypatch):
+    before = _force_slices(monkeypatch, _requests(seed, n, n * p)[0], slices)
+    _stage_equals_reference(seed, n, p, cap)
+    _slices_since(before, slices)
+
+
+def _group_equals_reference(drop_self):
     dst, src, dist = _requests(7, 50, 700)
     req = pools.Requests(_t(dst), _t(src), _t(dist))
     jreq = jpools.Requests(jnp.asarray(dst), jnp.asarray(src), jnp.asarray(dist))
@@ -75,6 +106,19 @@ def test_group_requests_equals_reference_exactly(drop_self):
     wi, wd = _group_ref(jreq, 50, 8, drop_self)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
     np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+
+
+@pytest.mark.parametrize("drop_self", [True, False])
+def test_group_requests_equals_reference_exactly(drop_self):
+    _group_equals_reference(drop_self)
+
+
+@pytest.mark.parametrize("slices", ["one", "several"])
+@pytest.mark.parametrize("drop_self", [True, False])
+def test_group_requests_in_slices_equals_reference_exactly(drop_self, slices, monkeypatch):
+    before = _force_slices(monkeypatch, _requests(7, 50, 700)[0], slices)
+    _group_equals_reference(drop_self)
+    _slices_since(before, slices)
 
 
 def _pool(seed, n, r):
@@ -85,7 +129,7 @@ def _pool(seed, n, r):
     return ids, dists
 
 
-def test_insert_requests_and_build_into_empty_equal_reference():
+def _insert_and_into_empty_equal_reference():
     n, r = 48, 8
     ids, dists = _pool(11, n, r)
     dst, src, dist = _requests(12, n, 400)
@@ -99,6 +143,17 @@ def test_insert_requests_and_build_into_empty_equal_reference():
     want = _into_empty_ref(n, r, jreq, 4)
     np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
     np.testing.assert_array_equal(got.dists.numpy(), np.asarray(want.dists))
+
+
+def test_insert_requests_and_build_into_empty_equal_reference():
+    _insert_and_into_empty_equal_reference()
+
+
+@pytest.mark.parametrize("slices", ["one", "several"])
+def test_insert_requests_and_build_into_empty_in_slices_equal_reference(slices, monkeypatch):
+    before = _force_slices(monkeypatch, _requests(12, 48, 400)[0], slices)
+    _insert_and_into_empty_equal_reference()
+    _slices_since(before, slices, stagings=2)
 
 
 def test_concat_requests_and_empty_pool():

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch import trace
-from repro_torch.core import Draws, GRNNDConfig, build_graph, search
+from repro_torch.core import Draws, GRNNDConfig, build_graph, pools, search
 from repro_torch.kernels import _build
 
 torch.set_num_threads(1)
@@ -70,6 +70,8 @@ def test_unknown_names_raise():
         trace.span("unknown")
     with pytest.raises(KeyError):
         trace.count("unknown")
+    with pytest.raises(KeyError):
+        trace.tally("unknown")
 
 
 def test_counts_snapshot_launches_and_syncs(monkeypatch):
@@ -77,6 +79,7 @@ def test_counts_snapshot_launches_and_syncs(monkeypatch):
     got = trace.counts()
     assert got["launch/topr_merge"] == 3 and got["launch/search_expand/int8+valid"] == 2
     assert {k for k in got if k.startswith("host_sync/")} == {f"host_sync/{s}" for s in trace.SYNCS}
+    assert set(trace.TALLIES) <= set(got)
     got["launch/topr_merge"] = 0  # a snapshot, not a view
     assert trace.counts()["launch/topr_merge"] == 3
 
@@ -98,8 +101,28 @@ def test_build_records_its_rounds_nested(order):
         ("pools.merge", "grnnd.reverse"): reverses,
     }
     assert syncs == {"search.frontier": 0, "search.expanded": 0, "search.entry": 0,
-                     "grnnd.reverse": reverses}
+                     "grnnd.reverse": reverses, "pools.stage": 0}
     plain = _build_graph(x, order)
+    assert torch.equal(pool.ids, plain.ids) and torch.equal(pool.dists, plain.dists)
+
+
+def test_sliced_staging_records_a_slice_span_each_and_one_sync(monkeypatch):
+    """Past `pools.STAGE_BUDGET` requests a staging records one `pools.slice`
+    a slice staged, nested in `pools.stage`, beside one pass of its counted
+    sync and one `pools/slices` tally a slice; the pools are bitwise the
+    unsliced build's."""
+    x, _ = _data()
+    plain = _build_graph(x, "disordered")
+    monkeypatch.setattr(pools, "STAGE_BUDGET", 300)
+    before = trace.counts()["pools/slices"]
+    pool, seen, syncs = _recorded(lambda: _build_graph(x, "disordered"))
+    slices = trace.counts()["pools/slices"] - before
+    stagings = seen["pools.stage", "grnnd.round"] + seen["pools.stage", "grnnd.reverse"]
+    assert stagings == CFG["t1"] * CFG["t2"] + CFG["t1"] - 1
+    assert seen["pools.slice", "pools.stage"] == slices > stagings
+    # every staging holds past 300 requests: its ranges read
+    assert syncs["pools.stage"] == stagings
+    assert not {k for k in seen if k[0] == "pools.slice" and k[1] != "pools.stage"}
     assert torch.equal(pool.ids, plain.ids) and torch.equal(pool.dists, plain.dists)
 
 
@@ -122,7 +145,7 @@ def test_hashed_search_records_one_step_a_sync():
         ("search.visited", "search.step"): expands,
     }
     assert syncs == {"search.frontier": steps, "search.expanded": expands, "search.entry": 1,
-                     "grnnd.reverse": 0}
+                     "grnnd.reverse": 0, "pools.stage": 0}
     plain = run()
     for a, b in zip(res, plain):
         assert torch.equal(a, b)
