@@ -8,10 +8,11 @@ A pool is a pair of tensors over all N vertices:
 The paper's atomic WARP_INSERT becomes a deterministic two-stage dataflow,
 as in the JAX package's `core/pools.py`:
 
-  1. `_stage`: a round's (dst, src, dist) insertion requests are ordered by
-     stable sorts (dst-major, dist-minor), capped per destination, and
-     scattered into a per-vertex (N, cap) staging buffer (past
-     `STAGE_BUDGET` requests, over slices of destinations, bitwise the same);
+  1. `_stage`: a round's active (dst, src, dist) insertion requests are
+     taken out, ordered by stable sorts (dst-major, dist-minor), capped per
+     destination, and scattered into a per-vertex (N, cap) staging buffer
+     (past `STAGE_BUDGET` active requests, over slices of destinations,
+     bitwise the same);
   2. `ops.topr_merge`: per vertex, pool and staging are deduplicated and
      the R closest survive.
 """
@@ -31,11 +32,13 @@ from repro_torch.kernels import ops
 # (block * K, D) fp32 matrices (800 MB each at K = 24, D = 128)
 OWNER_BLOCK = 1 << 16
 
-# requests staged in one pass at most (`_stage`). A pass holds up to ~60 bytes
-# a request at once (the sorts' int64 permutations and double buffers, the
-# gathered copies), ~8 GB at this budget; every staging of a 10^6-row build
-# (N·P = N·R = 4.8·10^7 at R = P = 48) stays one pass. Past it the requests
-# are staged over ranges of destinations, at most this many a slice
+# active requests staged in one pass at most (`_stage`). A pass holds up to
+# ~60 bytes a request at once (the sorts' int64 permutations and double
+# buffers, the gathered copies), ~8 GB at this budget; every staging of a
+# 10^6-row build (N·P = N·R = 4.8·10^7 requests at R = P = 48, ~10-40% of
+# them active) and every round of a 10^7-row build (~6·10^7 active of
+# 4.8·10^8) stays one pass. Past it the active requests are staged over
+# ranges of destinations, at most this many a slice
 STAGE_BUDGET = 1 << 27
 
 
@@ -132,26 +135,39 @@ def _stage(dst, src_in, dist_in, n: int, cap: int, drop_self: bool = True,
            budget: int | None = None):
     """Stage requests into per-destination buffers: -> ids / dists (N, cap).
 
-    Requests are ordered dist-minor / dst-major with two stable sorts,
-    ranked within their destination segment, and the first `cap` per
-    destination scattered. Self-inserts (dst == src) and inactive requests
-    (dst < 0) are dropped, and so is every repeat of a (dst, src) pair, so
-    that repeats cannot crowd out distinct candidates at the cap.
+    Self-inserts (dst == src, where `drop_self`) and inactive requests (dst
+    < 0) are dropped first: the active ones are taken out in request order
+    (the host reads their count). They are ordered dist-minor / dst-major
+    with two stable sorts, ranked within their destination segment, and the
+    first `cap` per destination scattered; every repeat of a (dst, src) pair
+    is dropped, so that repeats cannot crowd out distinct candidates at the
+    cap. A dropped request only ever sorts behind every kept one, so the
+    sorts of the active subsequence stage what sorts of the whole batch do.
 
-    All of this happens within one destination's requests. So a batch of
-    more than `budget` requests (default `STAGE_BUDGET`; the argument is for
-    tests) is staged over ranges of destinations, one slice at a time: a
-    slice is the requests to its range (an inactive request is in none), in
-    their original order, so the stable sorts order every destination's
-    requests as one pass does, and the staged ids and distances are bitwise
-    the same at any slice count. Up to `budget` the one pass is the one
-    slice [0, N) of every request.
+    All of this happens within one destination's requests. So more than
+    `budget` active requests (default `STAGE_BUDGET`; the argument is for
+    tests) are staged over ranges of destinations, one slice at a time: a
+    slice is the requests to its range, in their original order, so the
+    stable sorts order every destination's requests as one pass does, and
+    the staged ids and distances are bitwise the same at any slice count. Up
+    to `budget` the one pass is the one slice [0, N).
     """
     budget = STAGE_BUDGET if budget is None else budget
-    if dst.shape[0] <= budget:
-        parts = [_rank(dst, src_in, dist_in, 0, n, n, cap, drop_self)]
+    act = dst >= 0
+    if drop_self:
+        act &= dst != src_in
+    at = torch.nonzero(act).squeeze(1)
+    del act
+    trace.count("pools.stage")  # the host reads the active count
+    m = at.shape[0]
+    trace.tally("pools/requests", dst.shape[0])
+    trace.tally("pools/active", m)
+    dst, src_in, dist_in = dst[at], src_in[at], dist_in[at]
+    del at
+    if m <= budget:
+        parts = [_rank(dst, src_in, dist_in, 0, n, n, cap)]
     else:
-        parts = _slices(dst, src_in, dist_in, n, cap, drop_self, budget)
+        parts = _slices(dst, src_in, dist_in, n, cap, budget)
     dev = dst.device
     staged_ids = torch.full((n * cap + 1,), -1, dtype=torch.int32, device=dev)
     staged_dists = torch.full((n * cap + 1,), torch.inf, dtype=torch.float32, device=dev)
@@ -162,11 +178,11 @@ def _stage(dst, src_in, dist_in, n: int, cap: int, drop_self: bool = True,
     return staged_ids[:-1].view(n, cap), staged_dists[:-1].view(n, cap)
 
 
-def _slices(dst, src_in, dist_in, n: int, cap: int, drop_self: bool, budget: int):
-    """`_rank` over the ranges of `_slice_bounds`, each range's requests
-    taken out, in request order, only for its turn."""
+def _slices(dst, src_in, dist_in, n: int, cap: int, budget: int):
+    """`_rank` over the ranges of `_slice_bounds`, each range's (active)
+    requests taken out, in request order, only for its turn."""
     bounds, ranges = _slice_bounds(dst, n, budget)
-    # the range of each request: k for destinations in ranges[k - 1], 0 if inactive
+    # the range of each request: k for destinations in ranges[k - 1]
     sid = torch.searchsorted(bounds.to(dst.dtype), dst, right=True, out_int32=True)
     for k, (lo, hi, size) in enumerate(ranges, start=1):
         if size == 0:
@@ -174,26 +190,20 @@ def _slices(dst, src_in, dist_in, n: int, cap: int, drop_self: bool, budget: int
         with trace.span("pools.slice"):
             trace.tally("pools/slices")
             sel = torch.nonzero_static(sid == k, size=size).squeeze(1)
-            part = _rank(dst[sel], src_in[sel], dist_in[sel], lo, hi, n, cap, drop_self)
+            part = _rank(dst[sel], src_in[sel], dist_in[sel], lo, hi, n, cap)
             del sel
         yield part
 
 
 def _slice_bounds(dst, n: int, budget: int):
     """Ranges of destinations [lo, hi) that split requests to destinations
-    `dst` (-1: inactive, in no range) into slices of at most `budget`,
-    greedily from destination 0 (a destination with more requests than that
-    takes a range alone): (their bounds (K + 1,) on the card, [(lo, hi,
-    requests)])."""
+    `dst` (each in [0, n)) into slices of at most `budget`, greedily from
+    destination 0 (a destination with more requests than that takes a range
+    alone): (their bounds (K + 1,) on the card, [(lo, hi, requests)])."""
     dev = dst.device
     m = dst.shape[0]
-    act = dst >= 0
-    # an inactive request adds 0 to a bin of its own position: on one bin
-    # their atomics all collide (356 ms for 4.2·10^8 of them on an H100)
-    spread = torch.arange(m, dtype=dst.dtype, device=dev).remainder_(n)
     per_dst = torch.zeros(n, dtype=torch.int32, device=dev)
-    per_dst.index_add_(0, torch.where(act, dst, spread), act.int())
-    del act, spread
+    per_dst.index_add_(0, dst, torch.ones_like(dst))
     ends = F.pad(per_dst.cumsum(0, dtype=torch.int64), (1, 0))  # requests below each
     lo = torch.zeros(1, dtype=torch.int64, device=dev)
     bounds = [lo]
@@ -210,13 +220,11 @@ def _slice_bounds(dst, n: int, budget: int):
     return bounds[:k], [(at[i], at[i + 1], below[i + 1] - below[i]) for i in range(k - 1)]
 
 
-def _rank(dst, src_in, dist_in, lo: int, hi: int, n: int, cap: int, drop_self: bool):
+def _rank(dst, src_in, dist_in, lo: int, hi: int, n: int, cap: int):
     """The staging of requests to destinations in [lo, hi) (every other dst
     < 0): -> (slot of each in the (n·cap + 1,) staging buffer, n·cap for
     those dropped; src; dist), in the stage order."""
     dev = dst.device
-    if drop_self:
-        dst = torch.where(dst == src_in, -1, dst)
 
     # dedup identical (dst, src) requests: sort src-minor / dst-major and
     # invalidate repeats

@@ -19,7 +19,7 @@ The names are the closed tuple `SPANS` (nested spans indented):
       pools.stage       staging the round's requests (`pools._stage`)
         pools.slice       one slice of destinations (`pools._stage`), only
                           in a staging of more than `pools.STAGE_BUDGET`
-                          requests
+                          active requests
       pools.merge       the round's merge (`pools.merge_into`, B2)
     grnnd.reverse     one reverse-edge round (`pools.stage` ⊃ `pools.slice`,
                       `pools.merge` inside)
@@ -38,13 +38,19 @@ named in `SYNCS`:
                       step that expands
     search.entry      the entry row's gather by a 0-dim index, once a search
     grnnd.reverse     ρ made a device tensor, once a reverse-edge round
-    pools.stage       the slices' ranges read, once a staging of more
-                      than `pools.STAGE_BUDGET` requests
+    pools.stage       the active requests counted (`torch.nonzero`), once a
+                      staging; the slices' ranges read, once more a staging
+                      of more than `pools.STAGE_BUDGET` active requests
 
-`tally(name)` counts one event of the program, named in `TALLIES`:
+`tally(name, k)` counts k events of the program (one by default), named in
+`TALLIES`:
 
     pools/slices      one slice staged (`pools._stage`), only in a staging
-                      of more than `pools.STAGE_BUDGET` requests
+                      of more than `pools.STAGE_BUDGET` active requests
+    pools/requests    the requests of a staging (`pools._stage`), active or not
+    pools/active      those of them staged: active and not self-inserts where
+                      self-inserts are dropped. Over `pools/requests`, the
+                      share of a batch that the staging sorts
 
 `counts()` is one snapshot of the kernel launches (`kernels/_build.LAUNCHES`,
 as `launch/<variant>`), of the sync counts (as `host_sync/<site>`) and of
@@ -74,7 +80,7 @@ SPANS = (
     "search.visited",
 )
 SYNCS = ("search.frontier", "search.expanded", "search.entry", "grnnd.reverse", "pools.stage")
-TALLIES = ("pools/slices",)
+TALLIES = ("pools/slices", "pools/requests", "pools/active")
 
 _NAMES = frozenset(SPANS)
 _OFF = contextlib.nullcontext()
@@ -102,9 +108,9 @@ def count(site: str) -> None:
     HOST_SYNCS[site] += 1
 
 
-def tally(name: str) -> None:
-    """Count one event `name` (one of `TALLIES`)."""
-    EVENTS[name] += 1
+def tally(name: str, k: int = 1) -> None:
+    """Count `k` events `name` (one of `TALLIES`)."""
+    EVENTS[name] += k
 
 
 def counts() -> dict[str, int]:

@@ -48,7 +48,9 @@ training under `torch.use_deterministic_algorithms`; and a build and a
 hashed search that wait for the card (`torch.cuda.set_sync_debug_mode`)
 exactly as often as they pass their counted sync sites
 (`repro_torch.trace.SYNCS`), with the staging in one pass and in slices;
-and at 2·10^6 rows a build staged in slices bitwise the one-pass build.
+and at 2·10^6 rows a build staged in slices bitwise the one-pass build; and
+at 2·10^5 rows every staging of a build at the paper's SIFT1M settings (its
+active requests alone) bitwise the uncompacted one pass.
 Tolerances: fp32 distances to rtol 1e-5 / atol 1e-4 (other
 summation order; the dequant itself is bitwise the plain version's);
 pairwise to 1e-5 of |x|^2 + |y|^2 (norm-decomposition cancellation);
@@ -80,6 +82,7 @@ from repro_torch.core import (
     search,
 )
 from repro_torch import trace
+from repro_torch.configs.grnnd_paper import SIFT1M
 from repro_torch.core import corpus_shard as CS
 from repro_torch.core import pools
 from repro_torch.core.labels import pack_ids
@@ -93,6 +96,7 @@ from repro_torch.kernels.search_expand import search_expand
 from repro_torch.kernels.topr_merge import topr_merge
 from repro_torch.kernels.visited_insert import visited_insert
 from _beam_rows import beam_rows, match_flags
+from _stage_oracle import active, one_pass
 
 pytestmark = pytest.mark.cuda
 
@@ -1016,24 +1020,27 @@ def _counted_syncs(fn):
 def test_build_and_hashed_search_sync_only_at_counted_sites(dev, monkeypatch, budget):
     """A build and a hashed search wait for the card exactly as often as
     their counted sync sites (`trace.SYNCS`) are passed: once a
-    reverse-edge round, and once a staging where the staging is sliced (a
-    forced budget of 20,000 of its 96,000 requests); once a loop
-    iteration, once an expanding step and once a call."""
+    reverse-edge round, once a staging (its active requests counted), and
+    once more a sliced staging (a forced budget of 20,000 under the active
+    requests of each staging of 240,000: 13-42% of them active on the CPU); once
+    a loop iteration, once an expanding step and once a call."""
     g = torch.Generator(dev).manual_seed(3)
-    x = synthetic.make_preset(g, "sift-like", 4000)
+    x = synthetic.make_preset(g, "sift-like", 10_000)
     queries = synthetic.queries_from(g, x, 200)
     cfg = GRNNDConfig(s=12, r=24, t1=3, t2=3, pairs_per_vertex=24, chunk_size=1000)
     draws = Draws(1, dev)
     if budget is not None:
         monkeypatch.setattr(pools, "STAGE_BUDGET", budget)
+    bounds, sliced = pools._slice_bounds, []
+    monkeypatch.setattr(pools, "_slice_bounds", lambda *a: sliced.append(1) or bounds(*a))
     pool, warned, passes = _counted_syncs(lambda: build_graph(x, cfg, draws=draws, device=dev))
     where = sorted({(w.filename, w.lineno) for w in warned})
     assert passes["grnnd.reverse"] == cfg.t1 - 1
     stagings = cfg.t1 * cfg.t2 + cfg.t1 - 1
-    if budget is None:
-        assert passes["pools.stage"] == 0
-    else:  # the ranges read
-        assert passes["pools.stage"] == stagings
+    # every staging: the active count read; sliced (each one past the forced
+    # budget), the ranges read too
+    assert len(sliced) == (0 if budget is None else stagings)
+    assert passes["pools.stage"] == stagings + len(sliced)
     assert len(warned) == sum(passes.values()), where
     res, warned, passes = _counted_syncs(
         lambda: search(x, pool.ids, queries, k=10, ef=48, visited="hashed", device=dev)
@@ -1060,6 +1067,34 @@ def test_sliced_staging_on_the_card_is_bitwise_the_one_pass(dev, monkeypatch):
     assert torch.equal(got.ids, want.ids) and torch.equal(got.dists, want.dists)
     # a round's active requests (its redirects) and a reverse round's, past 2^22
     assert trace.counts()["pools/slices"] - before > 2 * (cfg.t1 * cfg.t2 + cfg.t1 - 1)
+
+
+def test_staging_on_the_card_is_bitwise_the_uncompacted_one_pass(dev, monkeypatch):
+    """At 2·10^5 rows of the sift-like preset and the paper's SIFT1M
+    settings, each staging of a build (24 rounds' redirects, 3 reverse
+    rounds' requests, 9.6·10^6 a round) stages its active requests alone
+    bitwise as the whole batch in one pass; ~5-50% of them are active."""
+    g = torch.Generator(dev).manual_seed(7)
+    x = synthetic.make_preset(g, "sift-like", 200_000)
+    cfg = SIFT1M.build
+    stage, seen = pools._stage, []
+
+    def held(dst, src, dist, n, cap, drop_self=True, budget=None):
+        got = stage(dst, src, dist, n, cap, drop_self, budget)
+        want = one_pass(dst, src, dist, n, cap, drop_self)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        seen.append((dst.shape[0], int(active(dst, src, drop_self).sum())))
+        return got
+
+    monkeypatch.setattr(pools, "_stage", held)
+    before = trace.counts()
+    build_graph(x, cfg, draws=Draws(5, dev), device=dev)
+    after = trace.counts()
+    assert len(seen) == cfg.t1 * cfg.t2 + cfg.t1 - 1
+    requests, act = (after[k] - before[k] for k in ("pools/requests", "pools/active"))
+    assert (requests, act) == tuple(map(sum, zip(*seen)))
+    assert all(0 < a < m for m, a in seen)
+    assert 0.05 <= act / requests <= 0.5
 
 
 def test_beam_merge_carries_the_flags_once_a_step(dev):

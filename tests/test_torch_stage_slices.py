@@ -1,15 +1,22 @@
-"""The bounded staging: `pools._stage` over slices of destinations is bitwise
-the one-pass staging.
+"""The staging of active requests: `pools._stage` is bitwise the
+uncompacted one pass, and so is its staging over slices of destinations.
 
-A staging of more requests than `pools.STAGE_BUDGET` is staged over
-ranges of destinations, one slice at a time: the requests to the range, in
-their original order (an inactive request is in none). The budgets here are
-forced so that the same requests stage in 1, 2, 3 and 7 slices, with
-inactive requests, self requests,
-repeated (dst, src) pairs, distance ties, destinations past their cap,
-destinations with no request, a destination with more requests than the
-budget and a batch with no active request; a whole build at the
-`deep-small` shape is bitwise the same with and without forced slicing.
+A staging first takes out its active requests (dst >= 0, and dst != src
+where self-inserts are dropped), in request order, and sorts those alone:
+bitwise `_rank` over the whole batch (`tests/_stage_oracle.py`), for
+`_requests`' batches, with and without `drop_self`, and for batches with
+no active request, only self requests or one active request; one host wait
+a staging (the count), and the `pools/requests` and `pools/active` tallies
+count the batch and its active requests. More active requests than
+`pools.STAGE_BUDGET` are staged over ranges of destinations, one slice at a
+time: the active requests to the range, in their original order (one more
+host wait, for the ranges). The budgets here are forced so that the same
+requests stage in one pass at the active count and in 2, 3 and 7 slices,
+with inactive requests, self requests, repeated (dst, src) pairs, distance
+ties, destinations past their cap, destinations with no request, a
+destination with more requests than the budget and a batch with no active
+request; a whole build at the `deep-small` shape is bitwise the same with
+and without forced slicing.
 """
 
 import numpy as np
@@ -20,6 +27,7 @@ from repro_torch import trace
 from repro_torch.configs.grnnd_paper import DEEP_SMALL
 from repro_torch.core import Draws, build_graph, pools
 from repro_torch.data import synthetic
+from _stage_oracle import active, one_pass
 
 torch.set_num_threads(1)
 
@@ -44,13 +52,14 @@ def _requests(seed, n, m, lo_dst=0):
     return torch.from_numpy(dst), torch.from_numpy(src), torch.from_numpy(dist)
 
 
-def _budget_for(dst, n, slices):
-    """The largest budget under the batch's size that stages `dst` in
-    `slices` slices."""
-    active = int((dst >= 0).sum())
+def _budget_for(dst, src, n, slices, drop_self=True):
+    """The largest budget under the batch's active requests (after
+    `drop_self`) that stages them in `slices` slices; 1: the active count,
+    the least budget that stages them in one pass."""
+    dst = dst[active(dst, src, drop_self)]
     if slices == 1:
-        return active
-    for budget in range(active - 1, 0, -1):
+        return dst.shape[0]
+    for budget in range(dst.shape[0] - 1, 0, -1):
         _, ranges = pools._slice_bounds(dst, n, budget)
         if sum(size > 0 for _, _, size in ranges) == slices:
             return budget
@@ -58,11 +67,24 @@ def _budget_for(dst, n, slices):
 
 
 def _staged(dst, src, dist, n, cap, drop_self=True, budget=None):
+    """(the staging, slices staged, host waits counted, {tally: count})."""
     before = trace.counts()
     out = pools._stage(dst, src, dist, n, cap, drop_self=drop_self, budget=budget)
     after = trace.counts()
+    tallies = {k: after[k] - before[k] for k in ("pools/requests", "pools/active")}
     return out, after["pools/slices"] - before["pools/slices"], (
-        after["host_sync/pools.stage"] - before["host_sync/pools.stage"])
+        after["host_sync/pools.stage"] - before["host_sync/pools.stage"]), tallies
+
+
+def _held_to_the_oracle(dst, src, dist, n, cap, drop_self, budget=None):
+    """Stage the batch, check it bitwise against the uncompacted one pass and
+    its tallies against the batch: -> (slices staged, host waits counted)."""
+    (gi, gd), slices, syncs, tallies = _staged(dst, src, dist, n, cap, drop_self, budget)
+    wi, wd = one_pass(dst, src, dist, n, cap, drop_self)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    assert tallies == {"pools/requests": dst.shape[0],
+                       "pools/active": int(active(dst, src, drop_self).sum())}
+    return slices, syncs
 
 
 @pytest.mark.parametrize("slices", [1, 2, 3, 7])
@@ -74,13 +96,14 @@ def test_sliced_stage_is_bitwise_the_one_pass(slices, seed, n, m, cap, lo_dst, d
     """lo_dst = 45: no request to the lower half of the destinations, so the
     first slice's range starts with destinations that get nothing."""
     dst, src, dist = _requests(seed, n, m, lo_dst)
-    (wi, wd), one, syncs = _staged(dst, src, dist, n, cap, drop_self)
-    assert one == 0 and syncs == 0  # under the budget: one pass, no host read
-    budget = _budget_for(dst, n, slices)
+    # under the budget: one pass, the count read
+    assert _held_to_the_oracle(dst, src, dist, n, cap, drop_self) == (0, 1)
+    budget = _budget_for(dst, src, n, slices, drop_self)
     assert budget < dst.shape[0]
-    (gi, gd), got, syncs = _staged(dst, src, dist, n, cap, drop_self, budget)
-    assert got == slices and syncs == 1  # the ranges read
-    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    got = _held_to_the_oracle(dst, src, dist, n, cap, drop_self, budget)
+    # as many active requests as the budget: one pass; past it the ranges read too
+    assert got == ((0, 1) if slices == 1 else (slices, 2))
+    wi, _ = one_pass(dst, src, dist, n, cap, drop_self)
     assert (wi >= 0).sum() > 0 and bool((wi[:, -1] >= 0).any())  # some rows fill their cap
 
 
@@ -88,7 +111,7 @@ def test_a_destination_past_the_budget_takes_a_range_alone():
     n, m = 50, 1200
     dst, src, dist = _requests(3, n, m)
     dst[: m // 2] = 17  # 600 requests, past a budget of 100
-    bounds, ranges = pools._slice_bounds(dst, n, 100)
+    bounds, ranges = pools._slice_bounds(dst[dst >= 0], n, 100)
     at = [lo for lo, _, _ in ranges] + [n]
     assert bounds.tolist() == at and at[0] == 0 and sorted(at) == at
     assert [size for lo, hi, size in ranges if (lo, hi) == (17, 18)][0] >= 600
@@ -104,9 +127,31 @@ def test_no_active_request_stages_no_slice():
     dst = torch.full((500,), -1, dtype=torch.int32)
     src = torch.arange(500, dtype=torch.int32) % n
     dist = torch.rand(500)
-    (ids, dists), slices, syncs = _staged(dst, src, dist, n, 4, budget=100)
+    (ids, dists), slices, syncs, _ = _staged(dst, src, dist, n, 4, budget=100)
     assert slices == 0 and syncs == 1
     assert bool((ids == -1).all()) and bool(torch.isinf(dists).all())
+
+
+def _degenerate(kind, n=40, m=600):
+    g = torch.Generator().manual_seed(9)
+    src = torch.randint(0, n, (m,), generator=g, dtype=torch.int32)
+    dist = torch.rand(m, generator=g)
+    dst = torch.full((m,), -1, dtype=torch.int32)
+    if kind == "all-self":
+        dst = src.clone()
+    elif kind == "one-active":
+        dst[m // 2] = (src[m // 2] + 1) % n
+    return dst, src, dist
+
+
+@pytest.mark.parametrize("kind", ["all-inactive", "all-self", "one-active"])
+@pytest.mark.parametrize("drop_self", [True, False])
+def test_degenerate_batches_are_bitwise_the_uncompacted_one_pass(kind, drop_self):
+    """No active request (the empty buffers), only self requests (staged
+    only where they are kept) and one active request: one pass, one wait."""
+    dst, src, dist = _degenerate(kind)
+    slices, syncs = _held_to_the_oracle(dst, src, dist, 40, 4, drop_self)
+    assert slices == 0 and syncs == 1
 
 
 def test_deep_small_build_is_bitwise_with_forced_slicing(monkeypatch):

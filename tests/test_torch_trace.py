@@ -100,28 +100,31 @@ def test_build_records_its_rounds_nested(order):
         ("pools.stage", "grnnd.reverse"): reverses,
         ("pools.merge", "grnnd.reverse"): reverses,
     }
+    # a staging counts its active requests
     assert syncs == {"search.frontier": 0, "search.expanded": 0, "search.entry": 0,
-                     "grnnd.reverse": reverses, "pools.stage": 0}
+                     "grnnd.reverse": reverses, "pools.stage": rounds + reverses}
     plain = _build_graph(x, order)
     assert torch.equal(pool.ids, plain.ids) and torch.equal(pool.dists, plain.dists)
 
 
 def test_sliced_staging_records_a_slice_span_each_and_one_sync(monkeypatch):
-    """Past `pools.STAGE_BUDGET` requests a staging records one `pools.slice`
-    a slice staged, nested in `pools.stage`, beside one pass of its counted
-    sync and one `pools/slices` tally a slice; the pools are bitwise the
-    unsliced build's."""
+    """Past `pools.STAGE_BUDGET` active requests a staging records one
+    `pools.slice` a slice staged, nested in `pools.stage`, beside a second
+    pass of its counted sync and one `pools/slices` tally a slice; the pools
+    are bitwise the unsliced build's."""
     x, _ = _data()
     plain = _build_graph(x, "disordered")
     monkeypatch.setattr(pools, "STAGE_BUDGET", 300)
+    bounds, sliced = pools._slice_bounds, []
+    monkeypatch.setattr(pools, "_slice_bounds", lambda *a: sliced.append(1) or bounds(*a))
     before = trace.counts()["pools/slices"]
     pool, seen, syncs = _recorded(lambda: _build_graph(x, "disordered"))
     slices = trace.counts()["pools/slices"] - before
     stagings = seen["pools.stage", "grnnd.round"] + seen["pools.stage", "grnnd.reverse"]
     assert stagings == CFG["t1"] * CFG["t2"] + CFG["t1"] - 1
-    assert seen["pools.slice", "pools.stage"] == slices > stagings
-    # every staging holds past 300 requests: its ranges read
-    assert syncs["pools.stage"] == stagings
+    assert seen["pools.slice", "pools.stage"] == slices > len(sliced) > 0
+    # every staging: its active requests counted; past 300 of them, its ranges read
+    assert syncs["pools.stage"] == stagings + len(sliced)
     assert not {k for k in seen if k[0] == "pools.slice" and k[1] != "pools.stage"}
     assert torch.equal(pool.ids, plain.ids) and torch.equal(pool.dists, plain.dists)
 
