@@ -14,21 +14,22 @@ state (beam, visited set, result heap) is O(Q) and replicated.
     slices an `OptimizedIndex` along its permuted rows, each shard owning
     its slice of `inv`.
 
-The search: each beam step factors over corpus rows, since `search_expand`
-scores each neighbor against that neighbor's own row. So each shard runs
-the kernel on its own slice (neighbors it does not own masked to -1, an
-empty slot) and the per-slot outputs are combined across shards with
-order-free owner-combines: min for distances (+inf from non-owners), max
-for ids (-1 from non-owners) and flags. Exactly one shard contributes per
-slot, so no fp sum is re-associated: the sharded step is bitwise the
-replicated step of `core.search`, for any shard count. The kernel probes a
-(Q, 1) table of -1, so its `fresh` is the live mask; freshness against the
-visited set is then taken on global ids (`search._table_member`,
-`_table_insert`), as the replicated search takes it.
+The search is the one beam loop, `search._traverse`; the sharded search
+supplies its two steps that read O(N) state (`run_sharded`). The fetch of
+a selected vertex's graph row is an owner-combine of the shards' rows.
+The expand runs B3 on each shard's own slice (neighbors it does not own
+masked to -1, an empty slot) against a (Q, 1) table of -1, so its `fresh`
+is the live mask, and combines the per-slot outputs with order-free
+owner-combines: min for distances (+inf from non-owners), max for ids (-1
+from non-owners) and flags; freshness against the visited set is then
+taken on global ids (`search._table_member`). Exactly one shard
+contributes per slot, so no fp sum is re-associated: the sharded search is
+bitwise `core.search.search`, for any shard count. After the loop each
+shard re-ranks and maps the ids it owns.
 
 In process (`group=None`) the combines fold the S local contributions;
-under a `torch.distributed` group (`core.distributed.corpus_sharded_search`)
-each rank holds one shard and the combines are `all_reduce` MIN / MAX.
+under a `torch.distributed` group each rank keeps its own shard and the
+combines are `all_reduce` MIN / MAX.
 
 The build (`sharded_build`, the divide-and-conquer recipe): per-partition
 GRNND builds give a block-diagonal pool; each merge round injects random
@@ -53,9 +54,9 @@ from repro_torch.core.grnnd import GRNNDConfig, build_graph, reverse_edge_round
 from repro_torch.core.search import (
     SearchResult,
     _rescore_merge,
-    _table_insert,
+    _search_args,
     _table_member,
-    default_visited_cap,
+    _traverse,
     medoid,
 )
 from repro_torch.kernels import ops
@@ -284,219 +285,102 @@ def _owner(ids, row0: int, n_own: int, n_loc: int):
 
 
 # ---------------------------------------------------------------------------
-# the corpus-sharded search body
+# the corpus-sharded search: `search._traverse` with a shard-local fetch and expand
 # ---------------------------------------------------------------------------
 
 
-def _corpus_body(
-    data,
-    scale,
-    offset,
-    graphs,
-    row0s: Sequence[int],
-    queries,
-    entry,
-    entry_row,
-    entry_valid,
-    rescores,
-    valids,
-    ids_maps,
-    vwords,
-    entry_words,
-    fwords,
-    *,
-    n: int,
-    k: int,
-    ef: int,
-    max_steps: int,
-    visited: str,
-    visited_cap: int,
-    group,
+def run_sharded(
+    index: CorpusShardedIndex, queries, fwords, *, k, ef, max_steps, visited, visited_cap, group
 ) -> SearchResult:
-    """The beam loop of `search._traverse`, every gather of O(N) state made
-    shard-local and combined by owner.
+    """The executor of `sharded_search`: arguments arrive normalized
+    (queries on the index's device, the filter packed to (Q, W) words, ef
+    widened, the table size resolved). Under a group of `index.n_shards`
+    ranks, rank r keeps shard r's slice of the stacks and the combines
+    finish across ranks; with `group=None` they fold the S local shards."""
+    if group is not None:
+        rank, world = torch.distributed.get_rank(group), torch.distributed.get_world_size(group)
+        if world != index.n_shards:
+            raise ValueError(f"{world} ranks for an index of {index.n_shards} shards")
 
-    Operands carry a leading local shard axis: in process the whole
-    (S, n_loc, ...) stacks with `group=None`; under a group each rank's
-    (1, n_loc, ...) slice, the combines finishing across ranks. `row0s`
-    are the local shards' first global rows.
-    """
-    s_l, n_loc, _r = graphs.shape
-    dev = queries.device
-    q = queries.shape[0]
-    qrows = torch.arange(q, device=dev)
+        def mine(a):
+            return None if a is None else a[rank : rank + 1]
+
+        index = index._replace(
+            data=mine(index.data),
+            graphs=mine(index.graphs),
+            row0s=mine(index.row0s),
+            valids=mine(index.valids),
+            rescores=mine(index.rescores),
+            vwords=mine(index.vwords),
+            ids_maps=mine(index.ids_maps),
+        )
+    s_l, n_loc = index.n_shards, index.n_loc
+    row0s = [int(r) for r in index.row0s.tolist()]
+    n_owns = [min(n_loc, index.n - row0) for row0 in row0s]
     filtered = fwords is not None
-    n_owns = [min(n_loc, n - row0) for row0 in row0s]
+    shards = [index.data[s] for s in range(s_l)]
+    if index.scale is not None:
+        shards = [VS.VectorStore(d, index.scale, index.offset) for d in shards]
+    # B3 sees local rows, so it probes this empty table; freshness against
+    # the visited set is taken on global ids
+    empty = torch.full((queries.shape[0], 1), -1, dtype=torch.int32, device=queries.device)
 
-    d_entry = ops.rowwise_sqdist(queries, entry_row.expand(q, -1).contiguous())
-    if entry_valid is not None:
-        d_entry = torch.where(entry_valid, d_entry, torch.inf)
-    cand_ids = torch.full((q, ef), -1, dtype=torch.int32, device=dev)
-    cand_ids[:, 0] = entry
-    cand_dists = torch.full((q, ef), torch.inf, dtype=torch.float32, device=dev)
-    cand_dists[:, 0] = d_entry
-    expanded = torch.zeros((q, ef), dtype=torch.bool, device=dev)
-    n_exp = torch.zeros((q,), dtype=torch.int32, device=dev)
-
-    if filtered:
-        e_ok = ((entry_words[None, :] & fwords) != 0).any(-1) & torch.isfinite(d_entry)
-        res_ids = torch.full((q, ef), -1, dtype=torch.int32, device=dev)
-        res_ids[:, 0] = torch.where(e_ok, entry, -1)
-        res_dists = torch.full((q, ef), torch.inf, dtype=torch.float32, device=dev)
-        res_dists[:, 0] = torch.where(e_ok, d_entry, torch.inf)
-
-    if visited == "dense":
-        vstate = torch.zeros((q, n), dtype=torch.uint8, device=dev)
-        vstate[:, entry.long()] = 1
-    else:
-        vstate = torch.full((q, visited_cap), -1, dtype=torch.int32, device=dev)
-        _table_insert(vstate, entry.expand(q, 1))
-    # the kernel always probes this empty table: freshness against the real
-    # visited set is taken below on global ids (the kernel sees local rows)
-    dummy = torch.full((q, 1), -1, dtype=torch.int32, device=dev)
-    shards = [
-        data[s] if scale is None else VS.VectorStore(data[s], scale, offset) for s in range(s_l)
-    ]
-
-    for _ in range(max_steps):
-        frontier = (cand_ids >= 0) & ~expanded
-        if not bool(frontier.any()):  # replicated state: every rank stops here
-            break
-        frontier_d = torch.where(frontier, cand_dists, torch.inf)
-        sel = frontier_d.argmin(-1)
-        active = torch.isfinite(frontier_d.gather(1, sel[:, None])[:, 0])
-        sel_id = cand_ids[qrows, sel]
-        expanded[qrows, sel] = True
-
-        # the owner's fetch of the selected vertices' graph rows
+    def fetch(sel_id):
         parts = []
         for s in range(s_l):
             owned, loc = _owner(sel_id, row0s[s], n_owns[s], n_loc)
-            parts.append(torch.where(owned[:, None], graphs[s][loc], -1))
-        nbrs = _cmax_i32(parts, group)
-        nbrs = torch.where(active[:, None] & (nbrs >= 0), nbrs, -1)
+            parts.append(torch.where(owned[:, None], index.graphs[s][loc], -1))
+        return _cmax_i32(parts, group)
 
-        # shard-local expansion: each shard scores the neighbors it owns
-        dq_parts, ok_parts, al_parts = [], [], []
+    def expand(nbrs, lookup):
+        outs = []
         for s in range(s_l):
             owned, loc = _owner(nbrs, row0s[s], n_owns[s], n_loc)
             nloc = torch.where(owned, loc, -1).to(torch.int32)
-            out = ops.search_expand(
-                shards[s],
-                queries,
-                nloc,
-                dummy,
-                None if valids is None else valids[s],
-                vwords[s] if filtered else None,
-                fwords,
-            )
-            dq_parts.append(out[1])
-            ok_parts.append(out[2])
-            if filtered:
-                al_parts.append(out[3])
-        dq = _cmin(dq_parts, group)
-        ok = _cor(ok_parts, group)
+            valid = None if index.valids is None else index.valids[s]
+            words = index.vwords[s] if filtered else None
+            outs.append(ops.search_expand(shards[s], queries, nloc, empty, valid, words, fwords))
+        dq = _cmin([o[1] for o in outs], group)
+        ok = _cor([o[2] for o in outs], group)
         nbrs = torch.where(ok, nbrs, -1)
-        if filtered:
-            allowed = _cor(al_parts, group)
+        allowed = (_cor([o[3] for o in outs], group),) if filtered else ()
+        return (nbrs, dq, ok & ~_table_member(lookup, nbrs), *allowed)
 
-        # the visited set on global ids, as the replicated search keeps it
-        if visited == "dense":
-            idx = nbrs.clamp_min(0).long()
-            fresh = ok & ~vstate.gather(1, idx).bool()
-            vstate.scatter_reduce_(1, idx, fresh.to(torch.uint8), reduce="amax")
-        else:
-            fresh = ok & ~_table_member(vstate, nbrs)
-            _table_insert(vstate, torch.where(fresh, nbrs, -1))
-
-        dq = torch.where(fresh, dq, torch.inf)
-        n_exp += fresh.sum(-1, dtype=torch.int32)
-
-        all_ids = torch.cat([cand_ids, torch.where(fresh, nbrs, -1)], dim=-1)
-        all_d = torch.cat([cand_dists, dq], dim=-1)
-        cand_ids, cand_dists, expanded = ops.topr_merge(all_ids, all_d, ef, flags=expanded)
-        if filtered:
-            keep = fresh & allowed
-            res_ids, res_dists = ops.topr_merge(
-                torch.cat([res_ids, torch.where(keep, nbrs, -1)], dim=-1),
-                torch.cat([res_dists, torch.where(keep, dq, torch.inf)], dim=-1),
-                ef,
-            )
-
-    out_ids, out_dists = (res_ids, res_dists) if filtered else (cand_ids, cand_dists)
-    if rescores is not None:
+    out_ids, out_dists, n_exp = _traverse(
+        queries,
+        index.entry,
+        index.entry_row,
+        index.entry_valid,
+        index.entry_words,
+        fwords,
+        n=index.n,
+        fetch=fetch,
+        expand=expand,
+        ef=ef,
+        max_steps=max_steps,
+        visited=visited,
+        cap=visited_cap,
+    )
+    if index.rescores is not None:
         # the cross-shard top-k: each shard re-ranks the final ef candidates
         # it owns against its fp32 slice (+inf elsewhere), and the merge
         # primitive re-sorts, as the replicated `_rescore_merge` does
         d_parts = []
         for s in range(s_l):
             owned, loc = _owner(out_ids, row0s[s], n_owns[s], n_loc)
-            diff = queries[:, None, :] - rescores[s][loc]
+            diff = queries[:, None, :] - index.rescores[s][loc]
             d_parts.append(torch.where(owned, (diff * diff).sum(-1), torch.inf))
-        d_exact = _cmin(d_parts, group)
-        out_ids, out_dists = ops.topr_merge(out_ids, d_exact, ef)
+        out_ids, out_dists = ops.topr_merge(out_ids, _cmin(d_parts, group), ef)
 
     out_ids, out_dists = out_ids[:, :k].contiguous(), out_dists[:, :k].contiguous()
-    if ids_maps is not None:
+    if index.ids_maps is not None:
         # the owner's slice of the layout pass's inverse permutation
         parts = []
         for s in range(s_l):
             owned, loc = _owner(out_ids, row0s[s], n_owns[s], n_loc)
-            parts.append(torch.where(owned, ids_maps[s][loc], -1))
+            parts.append(torch.where(owned, index.ids_maps[s][loc], -1))
         out_ids = torch.where(out_ids >= 0, _cmax_i32(parts, group), -1)
     return SearchResult(out_ids, out_dists, n_exp)
-
-
-def _prepare(index: CorpusShardedIndex, queries, k, ef, visited, visited_cap, filter, overfetch):
-    """Arguments of a sharded search in the executor's form: (queries on the
-    index's device, fp32; filter words or None; the working ef; the table
-    size, 0 for the dense set)."""
-    if ef < k:
-        raise ValueError(f"ef={ef} must be at least k={k}")
-    if visited not in ("dense", "hashed"):
-        raise ValueError(f"visited must be 'dense' or 'hashed', got {visited!r}")
-    dev = index.graphs.device
-    queries = _device.put(queries, torch.float32, dev)
-    fwords = None
-    if filter is not None:
-        if index.vwords is None:
-            raise ValueError("filtered search needs an index sharded with labels=")
-        fwords = _device.put(L.query_words(filter, index.vwords.shape[-1]), torch.int32, dev)
-        ef = max(ef, overfetch * k)
-    cap = 0
-    if visited == "hashed":
-        cap = visited_cap if visited_cap is not None else default_visited_cap(ef)
-    return queries, fwords, ef, cap
-
-
-def _run_body(
-    index: CorpusShardedIndex, queries, fwords, *, k, ef, max_steps, visited, visited_cap, group
-):
-    """`_corpus_body` over the index's (possibly one-shard) stacks."""
-    return _corpus_body(
-        index.data,
-        index.scale,
-        index.offset,
-        index.graphs,
-        [int(r) for r in index.row0s.tolist()],
-        queries,
-        index.entry,
-        index.entry_row,
-        index.entry_valid,
-        index.rescores,
-        index.valids,
-        index.ids_maps,
-        index.vwords,
-        index.entry_words,
-        fwords,
-        n=index.n,
-        k=k,
-        ef=ef,
-        max_steps=max_steps,
-        visited=visited,
-        visited_cap=visited_cap,
-        group=group,
-    )
 
 
 def sharded_search(
@@ -518,13 +402,14 @@ def sharded_search(
     With `group=None` the S shards' kernel calls run in this process. With
     a `torch.distributed` process group of `index.n_shards` ranks
     (`torch.distributed.group.WORLD` for the default group) rank r runs
-    shard r and the combines are collectives
-    (`core.distributed.corpus_sharded_search`); every rank gets the result.
+    shard r and the combines are collectives; every rank gets the result.
     `filter` is a per-query predicate in any `core.labels.query_words` form;
     the index must have been sharded with `labels=`.
     """
-    queries, fwords, ef, cap = _prepare(
-        index, queries, k, ef, visited, visited_cap, filter, overfetch
+    dev = index.graphs.device
+    queries = _device.put(queries, torch.float32, dev)
+    fwords, ef, cap = _search_args(
+        k, ef, visited, visited_cap, filter, index.vwords, overfetch, dev
     )
     host = VS.is_host(index.rescores)
     # host tier: traverse without the rescore and ids_map operands and keep
@@ -532,14 +417,17 @@ def sharded_search(
     # replicated path's `_rescore_merge` re-ranks (the flattened ids_map
     # stack is indexed by global id)
     run_idx = index._replace(rescores=None, ids_maps=None) if host else index
-    k_run = ef if host else k
-    kw = dict(k=k_run, ef=ef, max_steps=max_steps, visited=visited, visited_cap=cap)
-    if group is not None:
-        from repro_torch.core import distributed as D
-
-        res = D.corpus_sharded_search(run_idx, queries, fwords=fwords, group=group, **kw)
-    else:
-        res = _run_body(run_idx, queries, fwords, group=None, **kw)
+    res = run_sharded(
+        run_idx,
+        queries,
+        fwords,
+        k=ef if host else k,
+        ef=ef,
+        max_steps=max_steps,
+        visited=visited,
+        visited_cap=cap,
+        group=group,
+    )
     if not host:
         return res
     rv = index.rescores.gather(res.ids)

@@ -349,38 +349,12 @@ def corpus_sharded_search(
 ) -> SearchResult:
     """Run a `corpus_shard.CorpusShardedIndex` over the group's ranks, rank r
     holding shard r (its slice of the stacks) and the owner-combines run
-    as collectives. The executor behind `corpus_shard.sharded_search(group=)`:
-    arguments arrive normalized (ef widened, the table size resolved, the
-    filter packed to (Q, W) words). The world size must equal
-    `index.n_shards`."""
+    as collectives (`corpus_shard.run_sharded`): arguments arrive
+    normalized (ef widened, the table size resolved, the filter packed to
+    (Q, W) words). The world size must equal `index.n_shards`."""
     group = group if group is not None else dist.group.WORLD
-    rank, world = _rank_world(group)
-    if world != index.n_shards:
-        raise ValueError(f"{world} ranks for an index of {index.n_shards} shards")
-
-    def mine(a):
-        return None if a is None else a[rank : rank + 1]
-
-    loc = index._replace(
-        data=mine(index.data),
-        graphs=mine(index.graphs),
-        row0s=mine(index.row0s),
-        valids=mine(index.valids),
-        rescores=mine(index.rescores),
-        vwords=mine(index.vwords),
-        ids_maps=mine(index.ids_maps),
-    )
-    return CS._run_body(
-        loc,
-        queries,
-        fwords,
-        k=k,
-        ef=ef,
-        max_steps=max_steps,
-        visited=visited,
-        visited_cap=visited_cap,
-        group=group,
-    )
+    kw = dict(k=k, ef=ef, max_steps=max_steps, visited=visited, visited_cap=visited_cap)
+    return CS.run_sharded(index, queries, fwords, group=group, **kw)
 
 
 def sharded_apply_requests(

@@ -7,6 +7,11 @@ neighbors; a query stops when its whole list is expanded.
 
   * The expansion step (neighbor gather, query distances, visited probe) is
     one kernel, `ops.search_expand`; the beam merge is `ops.topr_merge`.
+  * `_traverse` is the one beam loop of the package. Its caller supplies
+    the entry and the two steps that read O(N) state: the fetch of the
+    selected vertices' graph rows and the expansion. `search` gathers them
+    from the replicated operands; `corpus_shard.sharded_search` from the
+    shards, combined by owner.
   * `visited="dense"` keeps an exact (Q, N) mask; `visited="hashed"` a
     per-query open-addressed table of `visited_cap` int32 slots, O(Q·H)
     memory independent of N. Capacity misses only cause re-expansions;
@@ -129,21 +134,65 @@ def _map_ids(ids, ids_map):
     return torch.where(ids >= 0, ids_map[ids.clamp_min(0).long()], -1)
 
 
-def _traverse(x, graph_ids, queries, entry, valid, vwords, fwords, ef, max_steps, visited, cap):
+def _search_args(k, ef, visited, visited_cap, filter, vwords, overfetch, dev):
+    """The argument rules both searches share: (filter words or None, the
+    working ef, the hashed table's size or 0 for the dense set). `vwords`
+    are the corpus's label words, or None without labels."""
+    if ef < k:
+        raise ValueError(f"ef={ef} must be at least k={k}")
+    if visited not in ("dense", "hashed"):
+        raise ValueError(f"visited must be 'dense' or 'hashed', got {visited!r}")
+    if visited_cap is not None and visited_cap <= 0:
+        raise ValueError(f"visited_cap must be positive, got {visited_cap}")
+    fwords = None
+    if filter is not None:
+        if vwords is None:
+            raise ValueError("filtered search needs a label store (labels=)")
+        fwords = _device.put(L.query_words(filter, vwords.shape[-1]), torch.int32, dev)
+        ef = max(ef, overfetch * k)
+    cap = 0
+    if visited == "hashed":
+        cap = visited_cap if visited_cap is not None else default_visited_cap(ef)
+    return fwords, ef, cap
+
+
+def _traverse(
+    queries,
+    entry,
+    entry_row,
+    entry_live,
+    entry_words,
+    fwords,
+    *,
+    n: int,
+    fetch,
+    expand,
+    ef: int,
+    max_steps: int,
+    visited: str,
+    cap: int,
+):
     """The beam loop: (Q, ef) ids and dists of the final beam, or of the
-    result heap under a filter, and n_expanded."""
+    result heap under a filter, and n_expanded.
+
+    The caller supplies the entry (its id, fp32 row, liveness or None, label
+    words or None), the corpus size `n` (for the dense mask) and the two
+    steps that read O(N) state: `fetch(sel_id)`, the selected vertices'
+    (Q, R) graph rows, and `expand(nbrs, lookup)`, B3's (nbrs, dq, fresh)
+    (with `allowed` fourth under a filter), fresh against the visited
+    table `lookup`. The beam is replicated, so under a process group every
+    rank leaves the loop at the same step.
+    """
     dev = queries.device
-    n = VS.nrows(x)
     q = queries.shape[0]
     qrows = torch.arange(q, device=dev)
     filtered = fwords is not None
 
-    trace.count("search.entry")  # a gather by a 0-dim index reads the index back
-    d_entry = ops.rowwise_sqdist(queries, VS.take(x, entry).expand(q, -1).contiguous())
-    if valid is not None:
+    d_entry = ops.rowwise_sqdist(queries, entry_row.expand(q, -1).contiguous())
+    if entry_live is not None:
         # a dead entry contributes nothing; every later insertion into the
         # beam is validity-filtered inside search_expand
-        d_entry = torch.where(valid[entry.long()], d_entry, torch.inf)
+        d_entry = torch.where(entry_live, d_entry, torch.inf)
     cand_ids = torch.full((q, ef), -1, dtype=torch.int32, device=dev)
     cand_ids[:, 0] = entry
     cand_dists = torch.full((q, ef), torch.inf, dtype=torch.float32, device=dev)
@@ -156,7 +205,7 @@ def _traverse(x, graph_ids, queries, entry, valid, vwords, fwords, ef, max_steps
         # route through filtered-out regions; only this heap, what the caller
         # sees, applies the predicate. It starts with the entry iff the
         # entry passes.
-        e_ok = ((vwords[entry.long()][None, :] & fwords) != 0).any(-1) & torch.isfinite(d_entry)
+        e_ok = ((entry_words[None, :] & fwords) != 0).any(-1) & torch.isfinite(d_entry)
         res_ids = torch.full((q, ef), -1, dtype=torch.int32, device=dev)
         res_ids[:, 0] = torch.where(e_ok, entry, -1)
         res_dists = torch.full((q, ef), torch.inf, dtype=torch.float32, device=dev)
@@ -189,9 +238,9 @@ def _traverse(x, graph_ids, queries, entry, valid, vwords, fwords, ef, max_steps
                 expanded[qrows, sel] = True
 
             with trace.span("search.expand"):
-                nbrs = graph_ids[sel_id.clamp_min(0).long()]  # (Q, R)
+                nbrs = fetch(sel_id)  # (Q, R)
                 nbrs = torch.where(active[:, None] & (nbrs >= 0), nbrs, -1)
-                out = ops.search_expand(x, queries, nbrs, lookup, valid, vwords, fwords)
+                out = expand(nbrs, lookup)
                 nbrs, dq, fresh = out[:3]
             with trace.span("search.visited"):
                 if visited == "dense":
@@ -266,38 +315,40 @@ def search(
     `ids_map` is an (N,) int32 map applied to the returned ids last (the
     layout pass's inverse permutation).
     """
-    if ef < k:
-        raise ValueError(f"ef={ef} must be at least k={k}")
-    if visited not in ("dense", "hashed"):
-        raise ValueError(f"visited must be 'dense' or 'hashed', got {visited!r}")
-    if visited_cap is not None and visited_cap <= 0:
-        raise ValueError(f"visited_cap must be positive, got {visited_cap}")
-
     dev = _device.resolve(device)
     x = VS.to_device(x, dev)
     graph_ids = _device.put(graph_ids, torch.int32, dev)
     queries = _device.put(queries, torch.float32, dev)
     if valid is not None:
         valid = _device.put(valid, torch.bool, dev)
-    vwords = fwords = None
-    if filter is not None:
-        if labels is None:
-            raise ValueError("filtered search needs a label store (labels=)")
+    vwords = None
+    if filter is not None and labels is not None:
         vwords = _device.put(L.store_words(labels), torch.int32, dev)
-        fwords = _device.put(L.query_words(filter, vwords.shape[1]), torch.int32, dev)
-        ef = max(ef, overfetch * k)
+    fwords, ef, cap = _search_args(k, ef, visited, visited_cap, filter, vwords, overfetch, dev)
     if ids_map is not None:
         ids_map = _device.put(ids_map, torch.int32, dev)
     host = VS.is_host(rescore)
     if rescore is not None and not host:
         rescore = VS.to_device(rescore, dev)
     entry = medoid(x, valid) if entry is None else _device.put(entry, torch.int32, dev)
-    cap = 0
-    if visited == "hashed":
-        cap = visited_cap if visited_cap is not None else default_visited_cap(ef)
 
+    trace.count("search.entry")  # a gather by a 0-dim index reads the index back
     out_ids, out_dists, n_exp = _traverse(
-        x, graph_ids, queries, entry, valid, vwords, fwords, ef, max_steps, visited, cap
+        queries,
+        entry,
+        VS.take(x, entry),
+        None if valid is None else valid[entry.long()],
+        None if vwords is None else vwords[entry.long()],
+        fwords,
+        n=VS.nrows(x),
+        fetch=lambda sel_id: graph_ids[sel_id.clamp_min(0).long()],
+        expand=lambda nbrs, lookup: ops.search_expand(
+            x, queries, nbrs, lookup, valid, vwords, fwords
+        ),
+        ef=ef,
+        max_steps=max_steps,
+        visited=visited,
+        cap=cap,
     )
     if rescore is None:
         return SearchResult(_map_ids(out_ids[:, :k], ids_map), out_dists[:, :k], n_exp)

@@ -3,10 +3,10 @@ the beam loop, on the CPU.
 
 With no profiler recording, `span()` is one shared null context. Under
 `torch.profiler` a tiny build records each span as often as its rounds
-run, nested as `trace.SPANS` documents; a tiny hashed search records one
-`search.step` a loop iteration, the last (breaking) one included, beside
-as many passes of the frontier's counted sync. Outputs are bitwise the
-same with the profiler on and off.
+run, nested as `trace.SPANS` documents; a tiny hashed search, replicated
+or corpus-sharded, records one `search.step` a loop iteration, the last
+(breaking) one included, beside as many passes of the frontier's counted
+sync. Outputs are bitwise the same with the profiler on and off.
 """
 
 import collections
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch import trace
-from repro_torch.core import Draws, GRNNDConfig, build_graph, pools, search
+from repro_torch.core import Draws, GRNNDConfig, build_graph, corpus_shard, pools, search
 from repro_torch.kernels import _build
 
 torch.set_num_threads(1)
@@ -129,12 +129,22 @@ def test_sliced_staging_records_a_slice_span_each_and_one_sync(monkeypatch):
     assert torch.equal(pool.ids, plain.ids) and torch.equal(pool.dists, plain.dists)
 
 
-def test_hashed_search_records_one_step_a_sync():
+@pytest.mark.parametrize("shards", [None, 2], ids=["replicated", "corpus-sharded"])
+def test_hashed_search_records_one_step_a_sync(shards):
+    """The corpus-sharded search (two shards in process) runs the same loop:
+    the replicated search's spans and frontier / expanded counts, and no
+    entry gather, its entry row being the index's."""
     x, q = _data()
     graph = _build_graph(x, "disordered").ids
+    kw = dict(k=5, ef=16, visited="hashed")
+
+    def replicated():
+        return search(x, graph, q, device="cpu", **kw)
+
+    index = None if shards is None else corpus_shard.shard(x, graph, shards, device="cpu")
 
     def run():
-        return search(x, graph, q, k=5, ef=16, visited="hashed", device="cpu")
+        return replicated() if index is None else index.search(q, **kw)
 
     res, seen, syncs = _recorded(run)
     steps = seen["search.step", None]
@@ -147,8 +157,11 @@ def test_hashed_search_records_one_step_a_sync():
         ("search.expand", "search.step"): expands,
         ("search.visited", "search.step"): expands,
     }
-    assert syncs == {"search.frontier": steps, "search.expanded": expands, "search.entry": 1,
-                     "grnnd.reverse": 0, "pools.stage": 0}
-    plain = run()
+    assert syncs == {"search.frontier": steps, "search.expanded": expands,
+                     "search.entry": int(shards is None), "grnnd.reverse": 0, "pools.stage": 0}
+    if shards is not None:
+        _, seen_rep, syncs_rep = _recorded(replicated)
+        assert seen == seen_rep and syncs == {**syncs_rep, "search.entry": 0}
+    plain = replicated()
     for a, b in zip(res, plain):
         assert torch.equal(a, b)
