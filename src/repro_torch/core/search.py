@@ -17,12 +17,17 @@ neighbors; a query stops when its whole list is expanded.
     memory independent of N. Capacity misses only cause re-expansions;
     with `visited_cap >= N` the table is collision-free and the search
     equals the dense one.
-  * The JAX `while_loop` becomes a Python loop that asks the card whether
-    any query still has a frontier. Each iteration is a `search.step`
-    span (`repro_torch.trace`), and each place the host waits for the card
-    is a counted site (`trace.SYNCS`): the frontier test, once an
-    iteration; the write of the expanded flag, once a step that expands;
-    the entry's gather, once a call.
+  * The JAX `while_loop` becomes a Python loop that reads each frontier
+    test (does any query still have a frontier?) one iteration late: the
+    test is copied to a pinned host slot behind an event, and the host
+    waits for the previous iteration's event alone, so the card always
+    holds a queued step while the host launches the next. The loop so runs
+    one spare step past the first empty frontier, a no-op tallied as
+    `search/spare_steps`; the step count depends on the inputs only. Each
+    iteration is a `search.step` span (`repro_torch.trace`); the counted
+    host waits (`trace.SYNCS`) are the frontier's event wait, once an
+    iteration, and the entry's gather, once a call, the one wait that
+    drains the stream.
   * The dataset may be a `core.vecstore.VectorStore` (bf16 / int8 rows,
     dequantized inside `search_expand`); `rescore=` re-ranks the final ef
     candidates against fp32 rows, the two-tier layout of the dynamic
@@ -156,6 +161,37 @@ def _search_args(k, ef, visited, visited_cap, filter, vwords, overfetch, dev):
     return fwords, ef, cap
 
 
+class _LateTest:
+    """The frontier tests of one beam loop, read by the host one test late.
+
+    `put(t)` copies the 0-dim device bool `t` into a pinned host slot
+    (`non_blocking`) and records an event behind the copy; `get(i)` waits
+    for the event of the i-th put alone, not for the stream, and reads its
+    slot. Two slots, so put i may be queued before put i - 1 is read. On
+    the CPU the copy is the read and there is no event.
+    """
+
+    def __init__(self, dev):
+        cuda = dev.type == "cuda"
+        self.slots = [torch.empty((), dtype=torch.bool, pin_memory=cuda) for _ in range(2)]
+        self.events = [torch.cuda.Event() for _ in range(2)] if cuda else None
+        self.stream = torch.cuda.current_stream(dev) if cuda else None
+        self.n = 0
+
+    def put(self, t: torch.Tensor) -> None:
+        i = self.n % 2
+        self.slots[i].copy_(t, non_blocking=True)
+        if self.events is not None:
+            self.events[i].record(self.stream)
+        self.n += 1
+
+    def get(self, i: int) -> bool:
+        """The i-th put's value; i is one of the last two puts."""
+        if self.events is not None:
+            self.events[i % 2].synchronize()
+        return bool(self.slots[i % 2])
+
+
 def _traverse(
     queries,
     entry,
@@ -182,6 +218,12 @@ def _traverse(
     (with `allowed` fourth under a filter), fresh against the visited
     table `lookup`. The beam is replicated, so under a process group every
     rank leaves the loop at the same step.
+
+    Step i runs iff test i - 1 found a frontier (step 0 iff there is a
+    query), never past `max_steps`: one step more than a loop that waits
+    for each test before its step, and that spare step is a no-op (every
+    query selects an +inf slot, so it is inactive; the only flag it sets is
+    on a slot already expanded or empty).
     """
     dev = queries.device
     q = queries.shape[0]
@@ -221,21 +263,26 @@ def _traverse(
         _table_insert(vstate, entry.expand(q, 1))
         lookup = vstate
 
+    tests = _LateTest(dev)
+    steps = 0
     for _ in range(max_steps):
         with trace.span("search.step"):
             with trace.span("search.frontier"):
                 frontier = (cand_ids >= 0) & ~expanded
                 trace.count("search.frontier")
-                more = bool(frontier.any())  # the host waits for the card
+                tests.put(frontier.any())
+                # waits for the previous test alone: the step launched
+                # after it stays queued on the card
+                more = tests.get(steps - 1) if steps else q > 0
             if not more:
                 break
+            steps += 1
             with trace.span("search.beam"):
                 frontier_d = torch.where(frontier, cand_dists, torch.inf)
                 sel = frontier_d.argmin(-1)  # (Q,)
                 active = torch.isfinite(frontier_d.gather(1, sel[:, None])[:, 0])
                 sel_id = cand_ids[qrows, sel]
-                trace.count("search.expanded")  # the host's True is copied to the card
-                expanded[qrows, sel] = True
+                expanded.scatter_(1, sel[:, None], True)
 
             with trace.span("search.expand"):
                 nbrs = fetch(sel_id)  # (Q, R)
@@ -273,6 +320,8 @@ def _traverse(
                         ef,
                     )
 
+    if steps and not tests.get(steps - 1):
+        trace.tally("search/spare_steps")
     if filtered:
         return res_ids, res_dists, n_exp
     return cand_ids, cand_dists, n_exp

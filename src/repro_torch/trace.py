@@ -24,7 +24,8 @@ The names are the closed tuple `SPANS` (nested spans indented):
     grnnd.reverse     one reverse-edge round (`pools.stage` ⊃ `pools.slice`,
                       `pools.merge` inside)
     search.step       one iteration of the beam loop, the last (breaking) one included
-      search.frontier   the frontier mask and its host sync
+      search.frontier   the frontier mask, its test queued, and the host's wait
+                        for the test one iteration back
       search.beam       the selection before the expand; the merge (which
                         carries the expanded flags) and the result heap after it
       search.expand     the neighbour gather and B3
@@ -33,10 +34,13 @@ The names are the closed tuple `SPANS` (nested spans indented):
 `count(site)` counts one pass of a site where the host waits for the card,
 named in `SYNCS`:
 
-    search.frontier   `bool(frontier.any())`, once a loop iteration
-    search.expanded   the expanded flag's write from a host scalar, once a
-                      step that expands
-    search.entry      the entry row's gather by a 0-dim index, once a search
+    search.frontier   the wait for the event behind the frontier test one
+                      iteration back (`search._LateTest`), once a loop
+                      iteration (the first has none to wait for): it waits
+                      for that test alone, and the step queued behind it
+                      stays queued on the card
+    search.entry      the entry row's gather by a 0-dim index, once a search:
+                      the search's one wait that drains the stream
     grnnd.reverse     ρ made a device tensor, once a reverse-edge round
     pools.stage       the active requests counted (`torch.nonzero`), once a
                       staging; the slices' ranges read, once more a staging
@@ -51,6 +55,9 @@ named in `SYNCS`:
     pools/active      those of them staged: active and not self-inserts where
                       self-inserts are dropped. Over `pools/requests`, the
                       share of a batch that the staging sorts
+    search/spare_steps  a beam step launched after the frontier emptied
+                      (`search._traverse`): one a search, none where
+                      `max_steps` cut it
 
 `counts()` is one snapshot of the kernel launches (`kernels/_build.LAUNCHES`,
 as `launch/<variant>`), of the sync counts (as `host_sync/<site>`) and of
@@ -79,8 +86,8 @@ SPANS = (
     "search.expand",
     "search.visited",
 )
-SYNCS = ("search.frontier", "search.expanded", "search.entry", "grnnd.reverse", "pools.stage")
-TALLIES = ("pools/slices", "pools/requests", "pools/active")
+SYNCS = ("search.frontier", "search.entry", "grnnd.reverse", "pools.stage")
+TALLIES = ("pools/slices", "pools/requests", "pools/active", "search/spare_steps")
 
 _NAMES = frozenset(SPANS)
 _OFF = contextlib.nullcontext()

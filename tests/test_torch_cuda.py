@@ -44,10 +44,11 @@ the chunked SSD scan against the recurrence at zamba2's head shapes; one
 training step of each of the ten families at reduced() width against the
 same step on the CPU port (loss within 1e-4, gradients within 1e-3 of each
 leaf's largest magnitude), and resumed training bitwise uninterrupted
-training under `torch.use_deterministic_algorithms`; and a build and a
-hashed search that wait for the card (`torch.cuda.set_sync_debug_mode`)
-exactly as often as they pass their counted sync sites
-(`repro_torch.trace.SYNCS`), with the staging in one pass and in slices;
+training under `torch.use_deterministic_algorithms`; and a build that
+waits for the card (`torch.cuda.set_sync_debug_mode`) exactly as often as
+it passes its counted sync sites (`repro_torch.trace.SYNCS`), with the
+staging in one pass and in slices, and a hashed search that drains the
+stream only at its entry's gather (its frontier waits are event waits);
 and at 2·10^6 rows a build staged in slices bitwise the one-pass build; and
 at 2·10^5 rows every staging of a build at the paper's SIFT1M settings (its
 active requests alone) bitwise the uncompacted one pass.
@@ -1022,8 +1023,10 @@ def test_build_and_hashed_search_sync_only_at_counted_sites(dev, monkeypatch, bu
     their counted sync sites (`trace.SYNCS`) are passed: once a
     reverse-edge round, once a staging (its active requests counted), and
     once more a sliced staging (a forced budget of 20,000 under the active
-    requests of each staging of 240,000: 13-42% of them active on the CPU); once
-    a loop iteration, once an expanding step and once a call."""
+    requests of each staging of 240,000: 13-42% of them active on the CPU).
+    A search drains the stream once, at its entry's gather; the frontier's
+    wait, once a loop iteration, is an event wait on the test one iteration
+    back, which leaves the stream queued, and the loop runs one spare step."""
     g = torch.Generator(dev).manual_seed(3)
     x = synthetic.make_preset(g, "sift-like", 10_000)
     queries = synthetic.queries_from(g, x, 200)
@@ -1042,13 +1045,17 @@ def test_build_and_hashed_search_sync_only_at_counted_sites(dev, monkeypatch, bu
     assert len(sliced) == (0 if budget is None else stagings)
     assert passes["pools.stage"] == stagings + len(sliced)
     assert len(warned) == sum(passes.values()), where
+    before = trace.counts()
     res, warned, passes = _counted_syncs(
         lambda: search(x, pool.ids, queries, k=10, ef=48, visited="hashed", device=dev)
     )
+    after = trace.counts()
     where = sorted({(w.filename, w.lineno) for w in warned})
-    assert passes["search.frontier"] == passes["search.expanded"] + 1 > 1
+    expands = after["launch/search_expand"] - before.get("launch/search_expand", 0)
+    assert passes["search.frontier"] == expands + 1 > 1
+    assert after["search/spare_steps"] - before["search/spare_steps"] == 1
     assert passes["search.entry"] == 1 and passes["grnnd.reverse"] == 0
-    assert len(warned) == sum(passes.values()), (passes, where)
+    assert len(warned) == passes["search.entry"], (passes, where)
     assert int(res.n_expanded.min()) > 0
 
 

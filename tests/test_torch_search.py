@@ -27,7 +27,8 @@ from repro.core.search import default_visited_cap as j_default_visited_cap
 from repro.core.search import medoid as jmedoid
 from repro.core.search import search as jsearch
 from repro.data import synthetic as jsynthetic
-from repro_torch import convert
+from repro_torch import convert, trace
+from repro_torch.core import labels as L
 from repro_torch.core.search import (
     EF_CEILING,
     _table_insert,
@@ -154,6 +155,116 @@ def test_table_insert_on_the_cpu_never_launches_a_kernel(monkeypatch, name):
             assert _table_insert(table, ids[:, ::2]) is table
             ref.visited_insert_ref(want, ids[:, ::2].contiguous())
     assert torch.equal(table, want)
+
+
+def _blocking_search(x, graph_ids, q, entry, *, k, ef, max_steps, visited, valid, vwords, fwords):
+    """The beam loop as it ran with a blocking frontier test: each step runs
+    only after the host has read that some query still has a frontier, and
+    the expanded flag is written by indexing. (ids, dists, n_expanded) of
+    the k best, and the steps run."""
+    nq, filtered = q.shape[0], fwords is not None
+    rows = torch.arange(nq)
+    d0 = ops.rowwise_sqdist(q, x[entry].expand(nq, -1).contiguous())
+    if valid is not None:
+        d0 = torch.where(valid[entry], d0, torch.inf)
+    ids = torch.full((nq, ef), -1, dtype=torch.int32)
+    dists = torch.full((nq, ef), torch.inf)
+    ids[:, 0], dists[:, 0] = entry, d0
+    done = torch.zeros((nq, ef), dtype=torch.bool)
+    n_exp = torch.zeros(nq, dtype=torch.int32)
+    if filtered:
+        ok = ((vwords[entry][None] & fwords) != 0).any(-1) & torch.isfinite(d0)
+        res_ids, res_dists = torch.full_like(ids, -1), torch.full_like(dists, torch.inf)
+        res_ids[:, 0] = torch.where(ok, entry, -1)
+        res_dists[:, 0] = torch.where(ok, d0, torch.inf)
+    if visited == "dense":
+        seen = torch.zeros((nq, x.shape[0]), dtype=torch.uint8)
+        seen[:, entry] = 1
+        lookup = torch.full((nq, 1), -1, dtype=torch.int32)
+    else:
+        lookup = torch.full((nq, default_visited_cap(ef)), -1, dtype=torch.int32)
+        _table_insert(lookup, torch.full((nq, 1), entry, dtype=torch.int32))
+    steps = 0
+    while steps < max_steps:
+        frontier = (ids >= 0) & ~done
+        if not bool(frontier.any()):
+            break
+        steps += 1
+        fd = torch.where(frontier, dists, torch.inf)
+        sel = fd.argmin(-1)
+        active = torch.isfinite(fd[rows, sel])
+        nbrs = graph_ids[ids[rows, sel].clamp_min(0).long()]
+        done[rows, sel] = True
+        nbrs = torch.where(active[:, None] & (nbrs >= 0), nbrs, -1)
+        out = ops.search_expand(x, q, nbrs, lookup, valid, vwords, fwords)
+        nbrs, dq, fresh = out[:3]
+        if visited == "dense":
+            idx = nbrs.clamp_min(0).long()
+            fresh = fresh & ~seen.gather(1, idx).bool()
+            seen.scatter_reduce_(1, idx, fresh.to(torch.uint8), reduce="amax")
+        else:
+            _table_insert(lookup, torch.where(fresh, nbrs, -1))
+        dq = torch.where(fresh, dq, torch.inf)
+        n_exp += fresh.sum(-1, dtype=torch.int32)
+        ids, dists, done = ops.topr_merge(
+            torch.cat([ids, torch.where(fresh, nbrs, -1)], -1), torch.cat([dists, dq], -1), ef,
+            flags=done,
+        )
+        if filtered:
+            keep = fresh & out[3]
+            res_ids, res_dists = ops.topr_merge(
+                torch.cat([res_ids, torch.where(keep, nbrs, -1)], -1),
+                torch.cat([res_dists, torch.where(keep, dq, torch.inf)], -1),
+                ef,
+            )
+    if filtered:
+        ids, dists = res_ids, res_dists
+    return ids[:, :k], dists[:, :k], n_exp, steps
+
+
+@pytest.mark.parametrize("case", ["dense", "hashed", "filtered", "dead-entry", "cut"])
+def test_late_frontier_test_is_the_blocking_loop_plus_one_spare_step(graph, monkeypatch, case):
+    """The loop that reads each frontier test one step late returns bitwise
+    the loop that waits for each test, and launches exactly one more
+    expansion, the spare step (`search/spare_steps`), or none where
+    `max_steps` cuts the search before its frontier empties."""
+    _, _, _, tx, tpool, tq = graph
+    g = torch.Generator().manual_seed(7)
+    entry = int(medoid(tx))
+    k, ef, max_steps = 10, 48, 512
+    kw = dict(visited="dense" if case == "dense" else "hashed")
+    valid = vwords = fwords = None
+    if case == "filtered":
+        store = L.encode_labels(torch.randint(0, 4, (tx.shape[0],), generator=g), 4)
+        kw.update(labels=store, filter=torch.randint(0, 4, (tq.shape[0],), generator=g))
+        vwords, fwords = store.words, L.query_words(kw["filter"], store.w)
+    if case == "dead-entry":
+        valid = torch.rand(tx.shape[0], generator=g) > 0.1
+        valid[entry] = False
+        kw.update(valid=valid)
+    if case == "cut":
+        max_steps = 4
+    calls = [0]
+    inner = ops.search_expand
+
+    def counted(*a):
+        calls[0] += 1
+        return inner(*a)
+
+    monkeypatch.setattr(ops, "search_expand", counted)
+    want = _blocking_search(tx, tpool.ids, tq, entry, k=k, ef=ef, max_steps=max_steps,
+                            visited=kw["visited"], valid=valid, vwords=vwords, fwords=fwords)
+    assert calls[0] == want[3] and (want[3] == max_steps) == (case == "cut")
+    calls[0] = 0
+    spare = trace.counts()["search/spare_steps"]
+    got = search(tx, tpool.ids, tq, k=k, ef=ef, max_steps=max_steps, entry=entry, device="cpu",
+                 **kw)
+    spare = trace.counts()["search/spare_steps"] - spare
+    assert spare == int(case != "cut") and calls[0] == want[3] + spare
+    for a, b in zip(got, want[:3]):
+        assert torch.equal(a, b)
+    if case == "filtered":
+        assert bool(L.allowed_mask(got.ids, fwords, vwords)[got.ids >= 0].all())
 
 
 def test_search_rejects_what_is_not_ported(graph):
